@@ -6,13 +6,20 @@
 Phases, each fatal on failure:
 
 1. build    — compile the scan kernel from pangaea_tpu_torch/csrc/
-              and print the build seconds and the card's name and power
-              limit.
+              and print the build seconds, the card's name and power
+              limit, and each variant's registers, spills, shared memory
+              and resident blocks per SM.
 2. kernels  — every op and direction of the CUDA scan against its plain
               PyTorch version on the card, bit-equal at awkward lengths
-              and at n = 2^28 (the sort-join window cap), with the
-              kernel's, the plain version's and the library call's times
-              at the cap.
+              (the kernel's tile edges T-1, T, T+1 and 33T+1 among them),
+              on misaligned views (x[1:], x[3:]), on adversarial inputs
+              (constant, monotone, all INT32_MIN / INT32_MAX, a wrapping
+              sum) and at n = 2^28 (the sort-join window cap), with the
+              kernel's, the plain version's and the library call's
+              times at the cap.
+   repeat   — each of the six variants 50 times on one input of 2^24+13
+              elements, every result bit-equal (a memory-ordering fault
+              in the look-back shows only now and then).
 3. pipeline — the port's steps 1-3 (FASTQ -> features -> VAE latent ->
               clusters.tsv -> per-bin reads) on cuda, at the bench.py
               geometry of 800k reads (8 species x 200 kb, 10k barcodes x
@@ -23,9 +30,15 @@ Phases, each fatal on failure:
               same FASTQ: abundance and TNF matrices and the barcode
               order must be byte-equal to the card's.
 
-The line before the last is one JSON object with every kernel of the
-main path (name, route, source, the TPU kernel it replaces, launches,
-max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms). The last line
+After phase 3, the main path's two wrappers are timed at its scan
+length. Every time is the median CUDA-event time of one call. A JSON
+line gives copy_ms, the time of one device-to-device copy of the same
+int32 bytes at each measured length (the achievable-bandwidth
+yardstick beside the bound). The line before the last is one JSON
+object with every kernel (name, route, source, the TPU kernel it
+replaces, launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+library_ms): cummax and cummin_reverse at the main path's length,
+cumsum, which the main path does not run, at 2^28. The last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, when there is no CUDA card or the
 package is missing. Scratch data goes to build/smoke (git-ignored).
@@ -49,8 +62,12 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 
 SCAN_CAP = 1 << 28          # FeatureConfig.sortjoin_max_windows
+# awkward lengths: the old 4096-element tiles, the Pallas block of 32768
 SCAN_LENGTHS = [1, 7, 4095, 4096, 4097, 32767, 32768, 32769,
                 3 * 32768 + 12345, 4096 * 4096 + 1]
+VARIANTS = [(op, rev) for op in ("max", "min", "sum") for rev in (False, True)]
+I32_MIN, I32_MAX = -(2 ** 31), 2 ** 31 - 1
+REPEAT_N, REPEATS = (1 << 24) + 13, 50
 
 
 def log(msg: str) -> None:
@@ -96,11 +113,17 @@ def scan_bound_ms(n: int) -> tuple:
 # ---- phase 1 -------------------------------------------------------------
 
 def phase_build() -> None:
-    from pangaea_tpu_torch.kernels import build
+    from pangaea_tpu_torch.kernels import build, scan
     t0 = time.perf_counter()
     build.load("scan")
     log(f"build: scan.cu in {time.perf_counter() - t0:.3f} s into "
-        f"{build.BUILD_DIR}")
+        f"{build.BUILD_DIR}; tile {scan.tile_elems()} elements")
+    for op, rev in VARIANTS:
+        res = scan.kernel_resources(op, rev)
+        log(f"build: scan ({op}, reverse={rev}): {res}")
+        if res["spill_bytes"] != 0 or res["blocks_per_sm"] < 1:
+            raise AssertionError(f"scan ({op}, reverse={rev}) spills or "
+                                 f"cannot launch: {res}")
 
 
 # ---- phase 2 -------------------------------------------------------------
@@ -136,6 +159,15 @@ def _plain_and_library(name: str):
     return plain, library
 
 
+def copy_ms(n: int) -> float:
+    """One device-to-device copy of n int32: the achievable-bandwidth
+    yardstick beside a scan's bound."""
+    import torch
+    x = torch.zeros(n, dtype=torch.int32, device="cuda")
+    dst = torch.empty_like(x)
+    return time_ms(lambda: dst.copy_(x))
+
+
 def scan_measure(name: str, op: str, n: int, seed: int) -> dict:
     """Kernel vs plain version on one n-element input: exactness and
     times (kernel, plain, library call, bound)."""
@@ -161,39 +193,116 @@ def scan_measure(name: str, op: str, n: int, seed: int) -> dict:
             "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
-def phase_kernels() -> None:
+def log_measure(name: str, r: dict) -> None:
+    lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    log(f"kernels: {name} n={r['n']} bit-equal; kernel {r['ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+        f"{r['bound_ms'] / r['ms']:.1%} of the bound")
+
+
+def check_variant(x, op: str, reverse: bool, what: str) -> None:
+    import torch
+    from pangaea_tpu_torch.kernels import scan
+    got = scan.scan_cuda(x, op, reverse)
+    torch.cuda.synchronize()
+    if not torch.equal(got, scan.scan_plain(x, op, reverse)):
+        raise AssertionError(f"scan_cuda({op}, reverse={reverse}) != plain "
+                             f"on {what} (n={x.numel()})")
+
+
+def adversarial_inputs(n: int) -> dict:
+    import torch
+    ramp = torch.arange(-(n // 2), n - n // 2, dtype=torch.int32,
+                        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    return {
+        "constant": torch.full((n,), 12345, dtype=torch.int32,
+                               device="cuda"),
+        "increasing": ramp,
+        "decreasing": ramp.flip(0),
+        "all INT32_MIN": torch.full((n,), I32_MIN, dtype=torch.int32,
+                                    device="cuda"),
+        "all INT32_MAX": torch.full((n,), I32_MAX, dtype=torch.int32,
+                                    device="cuda"),
+        # full int32 range: every sum wraps many times
+        "full range": torch.randint(I32_MIN, I32_MAX, (n,), generator=gen,
+                                    dtype=torch.int64,
+                                    device="cuda").to(torch.int32),
+    }
+
+
+def phase_kernels() -> dict:
     import torch
     from pangaea_tpu_torch.kernels import scan
     gen = torch.Generator(device="cuda").manual_seed(0)
+    tile = scan.tile_elems()
+    lengths = sorted(set(SCAN_LENGTHS + [tile - 1, tile, tile + 1,
+                                         33 * tile + 1]))
     for name, op in SCAN_OPS:
         plain, _ = _plain_and_library(name)
-        for n in [0] + SCAN_LENGTHS:
+        for n in [0] + lengths:
             x = _scan_input(n, op, gen, "cuda")
             got = getattr(scan, name)(x)
             torch.cuda.synchronize()
             if not torch.equal(got, plain(x)):
                 raise AssertionError(f"{name}: kernel != plain at n={n}")
-        log(f"kernels: {name} bit-equal at n in {[0] + SCAN_LENGTHS}")
-    # the kernel's other variants (forward min, reverse max and sum)
-    for op in ("max", "min", "sum"):
-        for reverse in (False, True):
-            for n in SCAN_LENGTHS:
-                x = _scan_input(n, op, gen, "cuda")
-                got = scan.scan_cuda(x, op, reverse)
-                torch.cuda.synchronize()
-                if not torch.equal(got, scan.scan_plain(x, op, reverse)):
-                    raise AssertionError(f"scan_cuda({op}, reverse="
-                                         f"{reverse}) != plain at n={n}")
-    log("kernels: all six (op, direction) variants bit-equal at n in "
-        f"{SCAN_LENGTHS}")
+        log(f"kernels: {name} bit-equal at n in {[0] + lengths}")
+    # every (op, direction) variant, the wrappers' among them
+    for op, reverse in VARIANTS:
+        for n in [0] + lengths:
+            check_variant(_scan_input(n, op, gen, "cuda"), op, reverse,
+                          "random input")
+    log(f"kernels: all six (op, direction) variants bit-equal at n in "
+        f"{[0] + lengths}")
+    for offset in (1, 3):
+        for n in (1, 7, tile - 1, tile + 3, 33 * tile + 1):
+            base = _scan_input(n + offset, "sum", gen, "cuda")
+            view = base[offset:]
+            if not view.is_contiguous() or view.data_ptr() % 16 == 0:
+                raise AssertionError("x[offset:] is not a misaligned view")
+            for op, reverse in VARIANTS:
+                check_variant(view, op, reverse, f"x[{offset}:]")
+    log("kernels: all six variants bit-equal on misaligned views x[1:], "
+        "x[3:]")
+    n_adv = 33 * tile + 7
+    inputs = adversarial_inputs(n_adv)
+    for what, x in inputs.items():
+        for op, reverse in VARIANTS:
+            check_variant(x, op, reverse, what)
+    log(f"kernels: all six variants bit-equal on adversarial inputs "
+        f"(n={n_adv}): {', '.join(inputs)}")
+    at_cap = {}
     for i, (name, op) in enumerate(SCAN_OPS):
-        r = scan_measure(name, op, SCAN_CAP, seed=100 + i)
-        lib = ("n/a" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms")
-        log(f"kernels: {name} n=2^28 bit-equal; kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        at_cap[name] = r = scan_measure(name, op, SCAN_CAP, seed=100 + i)
+        log_measure(name, r)
         torch.cuda.empty_cache()
+    # the variants no wrapper runs, at the cap too
+    for op, reverse in (("max", True), ("min", False), ("sum", True)):
+        check_variant(_scan_input(SCAN_CAP, op, gen, "cuda"), op, reverse,
+                      "random input")
+        torch.cuda.empty_cache()
+    log("kernels: all six variants bit-equal at n=2^28")
+    return at_cap
+
+
+def phase_repeat() -> None:
+    """Each variant REPEATS times on one input: every result bit-equal."""
+    import torch
+    from pangaea_tpu_torch.kernels import scan
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    x = torch.randint(I32_MIN, I32_MAX, (REPEAT_N,), generator=gen,
+                      dtype=torch.int64, device="cuda").to(torch.int32)
+    for op, reverse in VARIANTS:
+        want = scan.scan_plain(x, op, reverse)
+        for i in range(REPEATS):
+            got = scan.scan_cuda(x, op, reverse)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"scan_cuda({op}, reverse={reverse}) "
+                                     f"repeat {i} differs at n={REPEAT_N}")
+    log(f"repeat: all six variants bit-equal in {REPEATS} runs each at "
+        f"n={REPEAT_N}")
 
 
 # ---- phase 3 -------------------------------------------------------------
@@ -202,14 +311,18 @@ SIM = dict(n_species=8, genome_len=200_000, n_barcodes=10_000,
            pairs_per_barcode=40, read_len=150, seed=7)
 N_CLUSTERS = 8
 ARI_GATE = 0.5
-# the main path's kernels: (wrapper, op, TPU kernel replaced)
-PATH_KERNELS = (
+# every kernel: (wrapper, op, TPU kernel replaced); the main path runs
+# the first two
+KERNELS = (
     ("cummax", "max",
      "pangaea_tpu/kernels/scan.py:72 (_scan_kernel via cummax :153)"),
     ("cummin_reverse", "min",
      "pangaea_tpu/kernels/scan.py:72 (_scan_kernel via cummin_reverse "
      ":157)"),
+    ("cumsum", "sum",
+     "pangaea_tpu/kernels/scan.py:72 (_scan_kernel via cumsum :161)"),
 )
+PATH_KERNELS = KERNELS[:2]
 
 
 def smoke_dir() -> str:
@@ -340,12 +453,18 @@ def phase_exact(fq: str, feature_dir: str) -> None:
         f"abundance {abd.shape} and TNF {tnf.shape} byte-equal to the card's")
 
 
-def kernel_records(n_main: int, launches: dict) -> list:
-    """The JSON record of every kernel of the main path, measured at the
-    main path's scan length."""
+def kernel_records(n_main: int, launches: dict, at_cap: dict) -> list:
+    """The JSON record of every kernel: the main path's timed at its
+    scan length, cumsum (off the path) from its measurement at the cap."""
+    import torch
     recs = []
-    for i, (name, op, replaces) in enumerate(PATH_KERNELS):
-        r = scan_measure(name, op, n_main, seed=200 + i)
+    for i, (name, op, replaces) in enumerate(KERNELS):
+        if KERNELS[i] in PATH_KERNELS:
+            r = scan_measure(name, op, n_main, seed=200 + i)
+            log_measure(name, r)
+            torch.cuda.empty_cache()
+        else:
+            r = at_cap[name]
         recs.append({"name": name, "route": "cuda",
                      "source": "pangaea_tpu_torch/csrc/scan.cu",
                      "replaces": replaces, "launches": launches[name],
@@ -353,11 +472,6 @@ def kernel_records(n_main: int, launches: dict) -> list:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
-        lib = ("n/a" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms")
-        log(f"kernels: {name} at the main path's n={n_main}: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return recs
 
 
@@ -382,12 +496,17 @@ def main() -> int:
     log(card_line())
 
     phase_build()
-    phase_kernels()
+    at_cap = phase_kernels()
+    phase_repeat()
     fq, truth = sim_data()
     run = phase_pipeline(fq, truth)
-    records = kernel_records(run["stats"]["sorted_windows"], run["launches"])
+    n_main = run["stats"]["sorted_windows"]
+    records = kernel_records(n_main, run["launches"], at_cap)
+    copies = {str(n): copy_ms(n) for n in (n_main, SCAN_CAP)}
+    torch.cuda.empty_cache()
     phase_exact(fq, run["feature_dir"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"copy_ms": copies}))
     log(json.dumps({"kernels": records}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

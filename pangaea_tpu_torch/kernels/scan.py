@@ -16,6 +16,7 @@ INT32_MIN / INT32_MAX / 0, the sum wrapping like int32.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -65,6 +66,7 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError(f"scan runs on cpu or cuda, not {x.device}")
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("scan")
     lib.pgs_scan.restype = ctypes.c_int
@@ -72,15 +74,39 @@ def _lib() -> ctypes.CDLL:
                              ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.c_void_p]
-    lib.pgs_scan_scratch_elems.restype = ctypes.c_longlong
-    lib.pgs_scan_scratch_elems.argtypes = [ctypes.c_longlong]
+    lib.pgs_scan_scratch_bytes.restype = ctypes.c_longlong
+    lib.pgs_scan_scratch_bytes.argtypes = [ctypes.c_longlong]
+    lib.pgs_scan_tile_elems.restype = ctypes.c_int
+    lib.pgs_scan_tile_elems.argtypes = []
+    lib.pgs_scan_resources.restype = ctypes.c_int
+    lib.pgs_scan_resources.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
+def tile_elems() -> int:
+    """Elements per tile (per block) of the CUDA scan."""
+    return _lib().pgs_scan_tile_elems()
+
+
+def kernel_resources(op: str, reverse: bool) -> dict:
+    """Registers per thread, spill bytes per thread, shared bytes per
+    block and resident blocks per SM of one variant's kernel, as the CUDA
+    runtime reports them for the current card."""
+    res = (ctypes.c_int * 4)()
+    rc = _lib().pgs_scan_resources(_OP_CODES[op], int(reverse), res)
+    if rc != 0:
+        raise RuntimeError(f"pgs_scan_resources({op}, reverse={reverse}) "
+                           f"failed with code {rc}")
+    return dict(zip(("regs", "spill_bytes", "smem_bytes", "blocks_per_sm"),
+                    res))
+
+
 def scan_cuda(x: torch.Tensor, op: str, reverse: bool) -> torch.Tensor:
-    """Launch the CUDA scan on ``x`` (int32, 1-D, contiguous, on a card).
-    Outputs and scratch are allocated here; the kernel allocates nothing
-    and does not synchronise."""
+    """Launch the CUDA scan on ``x`` (int32, 1-D, contiguous, on a card;
+    any offset into its storage). Output and scratch (tile descriptors,
+    zeroed by the library on the stream) are allocated here; the kernel
+    allocates nothing and does not synchronise."""
     _check(x)
     if x.device.type != "cuda":
         raise ValueError(f"scan_cuda takes a CUDA tensor, got {x.device}")
@@ -90,8 +116,8 @@ def scan_cuda(x: torch.Tensor, op: str, reverse: bool) -> torch.Tensor:
         return out
     lib = _lib()
     with torch.cuda.device(x.device):
-        scratch = torch.empty(max(1, lib.pgs_scan_scratch_elems(n)),
-                              dtype=torch.int32, device=x.device)
+        scratch = torch.empty(lib.pgs_scan_scratch_bytes(n),
+                              dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pgs_scan(_OP_CODES[op], int(reverse), x.data_ptr(),
                           out.data_ptr(), n, scratch.data_ptr(),

@@ -51,6 +51,89 @@ def test_scan_cuda_every_variant(cuda, op, reverse, n):
     assert torch.equal(got, scan.scan_plain(x, op, reverse))
 
 
+VARIANTS = [(op, rev) for op in ("max", "min", "sum") for rev in (False, True)]
+I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _random(n, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(I32_MIN, I32_MAX, (n,), generator=gen,
+                         dtype=torch.int64, device=device).to(torch.int32)
+
+
+def _check_variant(x, op, reverse):
+    got = scan.scan_cuda(x, op, reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(got, scan.scan_plain(x, op, reverse)), \
+        f"({op}, reverse={reverse}) differs at n={x.numel()}"
+
+
+@pytest.mark.parametrize("op,reverse", VARIANTS)
+@pytest.mark.parametrize("edge", ["T-1", "T", "T+1", "33T+1"])
+def test_scan_cuda_tile_edges(cuda, op, reverse, edge):
+    """Lengths at the kernel's tile edges; 33 tiles make the look-back
+    slide past one window of 32 descriptors."""
+    t = scan.tile_elems()
+    n = {"T-1": t - 1, "T": t, "T+1": t + 1, "33T+1": 33 * t + 1}[edge]
+    _check_variant(_random(n, n + 11, cuda), op, reverse)
+
+
+@pytest.mark.parametrize("op,reverse", VARIANTS)
+@pytest.mark.parametrize("offset", [1, 3])
+def test_scan_cuda_misaligned_views(cuda, op, reverse, offset):
+    """x[offset:] starts off the 16-byte grid; the output does not."""
+    t = scan.tile_elems()
+    for n in (1, 7, t - 1, t + 3, 33 * t + 1):
+        base = _random(n + offset, n * 7 + offset, cuda)
+        view = base[offset:]
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        _check_variant(view, op, reverse)
+
+
+def _adversarial(kind, n, device):
+    if kind == "constant":
+        return torch.full((n,), 12345, dtype=torch.int32, device=device)
+    if kind == "increasing":
+        return torch.arange(-(n // 2), n - n // 2, dtype=torch.int32,
+                            device=device)
+    if kind == "decreasing":
+        return torch.arange(-(n // 2), n - n // 2, dtype=torch.int32,
+                            device=device).flip(0)
+    if kind == "full_range":  # sums wrap many times
+        return _random(n, 5, device)
+    return torch.full((n,), {"int_min": I32_MIN, "int_max": I32_MAX}[kind],
+                      dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("op,reverse", VARIANTS)
+@pytest.mark.parametrize("kind", ["constant", "increasing", "decreasing",
+                                  "int_min", "int_max", "full_range"])
+def test_scan_cuda_adversarial_inputs(cuda, op, reverse, kind):
+    n = 33 * scan.tile_elems() + 7
+    _check_variant(_adversarial(kind, n, cuda), op, reverse)
+
+
+@pytest.mark.parametrize("op,reverse", VARIANTS)
+def test_scan_cuda_repeats_bit_equal(cuda, op, reverse):
+    """The look-back's memory ordering: 20 runs on one input, each
+    bit-equal (a race shows up only now and then)."""
+    x = _random((1 << 24) + 13, 99, cuda)
+    want = scan.scan_plain(x, op, reverse)
+    for i in range(20):
+        got = scan.scan_cuda(x, op, reverse)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"repeat {i} differs"
+
+
+def test_scan_cuda_resources(cuda):
+    """Every variant compiles without spills and keeps two or more blocks
+    resident per SM."""
+    for op, reverse in VARIANTS:
+        res = scan.kernel_resources(op, reverse)
+        assert res["spill_bytes"] == 0, res
+        assert res["blocks_per_sm"] >= 2, res
+
+
 def test_sortjoin_bins_on_card_equals_cpu(cuda):
     from pangaea_tpu_torch.kernels.features import sortjoin_bins
     gen = torch.Generator().manual_seed(0)

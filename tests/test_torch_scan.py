@@ -61,6 +61,54 @@ def test_cummin_reverse_matches_pallas(n):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+_I32 = np.iinfo(np.int32)
+
+
+def _adversarial(kind, n):
+    if kind == "constant":
+        return np.full(n, 12345, np.int32)
+    if kind == "increasing":
+        return (np.arange(n, dtype=np.int64) - n // 2).astype(np.int32)
+    if kind == "decreasing":
+        return (n // 2 - np.arange(n, dtype=np.int64)).astype(np.int32)
+    return np.full(n, {"int_min": _I32.min, "int_max": _I32.max}[kind],
+                   np.int32)
+
+
+@pytest.mark.parametrize("op", ["max", "min", "sum"])
+@pytest.mark.parametrize("kind", ["constant", "increasing", "decreasing",
+                                  "int_min", "int_max"])
+def test_scan_plain_adversarial_inputs_match_pallas(op, kind):
+    """Constant, monotone and all-extreme inputs (the extremes are the
+    identities of max and min; their sums wrap) in both directions."""
+    x = _adversarial(kind, 2 * _BLOCK + 5)
+    fwd = np.asarray(_scan1d_pallas(x, op, interpret=True))
+    rev = np.flip(np.asarray(_scan1d_pallas(np.flip(x).copy(), op,
+                                            interpret=True)))
+    t = torch.from_numpy(x)
+    np.testing.assert_array_equal(scan.scan_plain(t, op, False).numpy(), fwd)
+    np.testing.assert_array_equal(scan.scan_plain(t, op, True).numpy(), rev)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("name,op,reverse", [("cummax", "max", False),
+                                             ("cummin_reverse", "min", True),
+                                             ("cumsum", "sum", False)])
+def test_wrappers_take_misaligned_views(name, op, reverse, offset):
+    """A contiguous view that starts inside its storage (x[1:], x[3:]:
+    not 16-byte aligned) goes through each wrapper."""
+    base = _input(_BLOCK + 9, op, seed=offset * 101 + len(name))
+    view = torch.from_numpy(base)[offset:]
+    assert view.is_contiguous() and view.storage_offset() == offset
+    x = base[offset:].copy()
+    if reverse:
+        want = np.flip(np.asarray(_scan1d_pallas(np.flip(x).copy(), op,
+                                                 interpret=True)))
+    else:
+        want = np.asarray(_scan1d_pallas(x, op, interpret=True))
+    np.testing.assert_array_equal(getattr(scan, name)(view).numpy(), want)
+
+
 def test_empty_input():
     x = torch.zeros(0, dtype=torch.int32)
     for fn in scan.WRAPPERS:
