@@ -5,10 +5,11 @@
 
 Phases, each fatal on failure:
 
-1. build    — compile the scan kernel from pangaea_tpu_torch/csrc/
-              and print the build seconds, the card's name and power
-              limit, and each variant's registers, spills, shared memory
-              and resident blocks per SM.
+1. build    — compile the scan kernel from pangaea_tpu_torch/csrc/ (nvcc)
+              and the native FASTQ reader from pangaea_tpu_torch/native/
+              (g++), both at once, and print the build seconds, the card's
+              name and power limit, and each scan variant's registers,
+              spills, shared memory and resident blocks per SM.
 2. kernels  — every op and direction of the CUDA scan against its plain
               PyTorch version on the card, bit-equal at awkward lengths
               (the kernel's tile edges T-1, T, T+1 and 33T+1 among them),
@@ -29,17 +30,33 @@ Phases, each fatal on failure:
 4. exact    — step 1 again with device="cpu" (the plain versions) on the
               same FASTQ: abundance and TNF matrices and the barcode
               order must be byte-equal to the card's.
+5. spill    — step 1 on cuda on phase 3's FASTQ with the window cap
+              lowered to 2^25 (the data is not cut): the aggregated spill
+              with the device store, with the disk store, and the raw
+              spill's ranged join. Each must be byte-equal to phase 3's
+              in-cap matrices, say in its stats which path ran, and launch
+              every scan its path runs (all three on the aggregated
+              spill; cummax and cummin_reverse on the raw ranged join of
+              unweighted keys).
+6. paired   — the same geometry simulated as -1/-2 files with errors and
+              low-quality bases (seed 7); steps 1-3 on cuda from the CLI's
+              -1/-2 flags through the native reader and the quality-masked
+              weighted join (every scan must launch, ARI >= 0.5); then
+              step 1 again with the 2^25 cap, the weighted aggregated
+              spill, byte-equal to the in-cap paired run.
 
-After phase 3, the main path's two wrappers are timed at its scan
-length. Every time is the median CUDA-event time of one call. A JSON
-line gives copy_ms, the time of one device-to-device copy of the same
-int32 bytes at each measured length (the achievable-bandwidth
-yardstick beside the bound). The line before the last is one JSON
-object with every kernel (name, route, source, the TPU kernel it
-replaces, launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-library_ms): cummax and cummin_reverse at the main path's length,
-cumsum, which the main path does not run, at 2^28. The last line
-is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Every path's launch counts are zeroed just before it and read just
+after it. After the phases, cummax and cummin_reverse are timed at the
+main path's scan length and cumsum at the paired path's; cumsum is also
+timed at 2^28 in phase 2. Every time is the median CUDA-event time of
+one call. A JSON line gives copy_ms, the time of one device-to-device
+copy of the same int32 bytes at each measured length (the
+achievable-bandwidth yardstick beside the bound). The line before the
+last is one JSON object with every kernel (name, route, source, the TPU
+kernel it replaces, launches summed over the driven paths and per path,
+max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms). The last
+line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}.
 Exits non-zero, printing no result, when there is no CUDA card or the
 package is missing. Scratch data goes to build/smoke (git-ignored).
 """
@@ -112,12 +129,24 @@ def scan_bound_ms(n: int) -> tuple:
 
 # ---- phase 1 -------------------------------------------------------------
 
-def phase_build() -> None:
-    from pangaea_tpu_torch.kernels import build, scan
+def _timed(fn) -> float:
     t0 = time.perf_counter()
-    build.load("scan")
-    log(f"build: scan.cu in {time.perf_counter() - t0:.3f} s into "
-        f"{build.BUILD_DIR}; tile {scan.tile_elems()} elements")
+    fn()
+    return time.perf_counter() - t0
+
+
+def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+    from pangaea_tpu_torch import native
+    from pangaea_tpu_torch.kernels import build, scan
+    with ThreadPoolExecutor(2) as pool:  # one compiler per source
+        scan_s = pool.submit(_timed, lambda: build.load("scan"))
+        io_s = pool.submit(_timed, native.get_lib)
+        scan_s, io_s = scan_s.result(), io_s.result()
+    log(f"build: scan.cu in {scan_s:.3f} s into {build.BUILD_DIR}; tile "
+        f"{scan.tile_elems()} elements")
+    log(f"build: native/fastq_reader.cpp in {io_s:.3f} s into "
+        f"{build.HOST_BUILD_DIR}")
     for op, rev in VARIANTS:
         res = scan.kernel_resources(op, rev)
         log(f"build: scan ({op}, reverse={rev}): {res}")
@@ -232,7 +261,7 @@ def adversarial_inputs(n: int) -> dict:
     }
 
 
-def phase_kernels() -> dict:
+def phase_kernels() -> None:
     import torch
     from pangaea_tpu_torch.kernels import scan
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -272,10 +301,8 @@ def phase_kernels() -> dict:
             check_variant(x, op, reverse, what)
     log(f"kernels: all six variants bit-equal on adversarial inputs "
         f"(n={n_adv}): {', '.join(inputs)}")
-    at_cap = {}
     for i, (name, op) in enumerate(SCAN_OPS):
-        at_cap[name] = r = scan_measure(name, op, SCAN_CAP, seed=100 + i)
-        log_measure(name, r)
+        log_measure(name, scan_measure(name, op, SCAN_CAP, seed=100 + i))
         torch.cuda.empty_cache()
     # the variants no wrapper runs, at the cap too
     for op, reverse in (("max", True), ("min", False), ("sum", True)):
@@ -283,7 +310,6 @@ def phase_kernels() -> dict:
                       "random input")
         torch.cuda.empty_cache()
     log("kernels: all six variants bit-equal at n=2^28")
-    return at_cap
 
 
 def phase_repeat() -> None:
@@ -309,10 +335,13 @@ def phase_repeat() -> None:
 
 SIM = dict(n_species=8, genome_len=200_000, n_barcodes=10_000,
            pairs_per_barcode=40, read_len=150, seed=7)
+# phase 6: the same geometry as -1/-2 files, with errors and low-quality
+# bases so the quality mask matters
+PAIRED_SIM = dict(SIM, error_rate=0.005, low_qual_rate=0.02)
 N_CLUSTERS = 8
 ARI_GATE = 0.5
-# every kernel: (wrapper, op, TPU kernel replaced); the main path runs
-# the first two
+SPILL_CAP = 1 << 25   # phase 5-6 window cap (phase 3's stream is ~2^26.7)
+# every kernel: (wrapper, op, TPU kernel replaced)
 KERNELS = (
     ("cummax", "max",
      "pangaea_tpu/kernels/scan.py:72 (_scan_kernel via cummax :153)"),
@@ -322,7 +351,8 @@ KERNELS = (
     ("cumsum", "sum",
      "pangaea_tpu/kernels/scan.py:72 (_scan_kernel via cumsum :161)"),
 )
-PATH_KERNELS = KERNELS[:2]
+ALL_SCANS = ("cummax", "cummin_reverse", "cumsum")
+FILL_SCANS = ("cummax", "cummin_reverse")
 
 
 def smoke_dir() -> str:
@@ -331,29 +361,35 @@ def smoke_dir() -> str:
     return d
 
 
-def sim_data() -> tuple:
-    """The bench.py FASTQ (800k reads), made from its seed; reused
-    when build/smoke already holds it for the same arguments."""
+def sim_data(name: str, sim: dict, paired: bool) -> tuple:
+    """Simulated FASTQ(s) made from the seed in ``sim``: one interleaved
+    file, or R1/R2 files; reused when build/smoke/<name> already holds
+    them for the same arguments. Returns (paths, barcode -> species)."""
     from pangaea_tpu_torch.io.sim import simulate_linked_reads
-    d = os.path.join(smoke_dir(), "data")
+    d = os.path.join(smoke_dir(), name)
     os.makedirs(d, exist_ok=True)
-    fq = os.path.join(d, "reads.fq.gz")
+    files = ("r1.fq.gz", "r2.fq.gz") if paired else ("reads.fq.gz",)
+    paths = [os.path.join(d, f) for f in files]
     meta = os.path.join(d, "truth.json")
     if os.path.exists(meta):
         with open(meta) as f:
             saved = json.load(f)
-        if saved["sim"] == SIM and os.path.exists(fq):
-            log(f"pipeline: reusing {fq}")
-            return fq, saved["barcode_species"]
+        if saved["sim"] == sim and all(map(os.path.exists, paths)):
+            log(f"{name}: reusing {paths}")
+            return paths, saved["barcode_species"]
     t0 = time.perf_counter()
-    tmp = fq + ".tmp.gz"
-    res = simulate_linked_reads(out_interleaved=tmp, **SIM)
-    os.replace(tmp, fq)
+    tmps = [p + ".tmp.gz" for p in paths]
+    if paired:
+        res = simulate_linked_reads(out_r1=tmps[0], out_r2=tmps[1], **sim)
+    else:
+        res = simulate_linked_reads(out_interleaved=tmps[0], **sim)
+    for tmp, path in zip(tmps, paths):
+        os.replace(tmp, path)
     with open(meta, "w") as f:
-        json.dump({"sim": SIM, "barcode_species": res.barcode_species}, f)
-    log(f"pipeline: simulated {2 * res.n_pairs} reads in "
+        json.dump({"sim": sim, "barcode_species": res.barcode_species}, f)
+    log(f"{name}: simulated {2 * res.n_pairs} reads in "
         f"{time.perf_counter() - t0:.1f} s")
-    return fq, res.barcode_species
+    return paths, res.barcode_species
 
 
 def read_clusters(tsv: str) -> dict:
@@ -366,17 +402,39 @@ def read_clusters(tsv: str) -> dict:
     return out
 
 
-def phase_pipeline(fq: str, truth: dict) -> dict:
+def launch_counts() -> dict:
+    from pangaea_tpu_torch.kernels import scan
+    return {fn.__name__: fn.launches for fn in scan.WRAPPERS}
+
+
+def check_launched(what: str, launches: dict, names) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"{what} never launched {name}: "
+                                 f"{launches}")
+
+
+def log_stats(what: str, stats: dict) -> None:
+    log(f"{what}: step-1 io {stats['io']}, spill {stats['spill']}, store "
+        f"{stats['store']}; stream {stats['stream_s']:.3f} s, sort-join "
+        f"{stats['sortjoin_s']:.3f} s, replay {stats['replay_s']:.3f} s; "
+        f"{stats['windows']} windows, {stats['sorted_windows']} sorted, "
+        f"{stats['batches']} batches, {stats['chunks']} chunks, "
+        f"{stats['spill_chunks']} aggregation chunks, {stats['ranges']} "
+        f"key ranges")
+
+
+def run_pipeline(what: str, cfg, truth: dict, kernels) -> dict:
+    """Steps 1-3 of ``cfg`` on cuda with the launch counts zeroed just
+    before; checks the markers, the kernels launched, the latent, the
+    bin FASTQs and the ARI vs truth."""
     import numpy as np
     import torch
     from pangaea_tpu_torch.cluster.metrics import adjusted_rand_score
-    from pangaea_tpu_torch.config import ClusterConfig, PangaeaConfig
     from pangaea_tpu_torch.kernels import scan
     from pangaea_tpu_torch.pipeline import Pipeline, check_step_finished
-    out = os.path.join(smoke_dir(), "run")
+    out = cfg.output
     shutil.rmtree(out, ignore_errors=True)
-    cfg = PangaeaConfig(interleaved_reads=fq, output=out, steps="1,2,3",
-                        cluster=ClusterConfig(n_clusters=N_CLUSTERS))
     pipe = Pipeline(cfg, device="cuda")
     scan.reset_launches()
     torch.cuda.synchronize()
@@ -384,13 +442,11 @@ def phase_pipeline(fq: str, truth: dict) -> dict:
     pipe.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in scan.WRAPPERS}
+    launches = launch_counts()
     for step in ("1", "2", "3"):
         if not check_step_finished(out, step):
-            raise AssertionError(f"step {step} left no marker")
-    for name, *_ in PATH_KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError(f"main path never launched {name}")
+            raise AssertionError(f"{what}: step {step} left no marker")
+    check_launched(what, launches, kernels)
     stats = dict(pipe.feature_extractor.stats)
     steps = {k: v.seconds for k, v in pipe.timer.stages.items()}
     clusters = read_clusters(os.path.join(out, "3.clustering",
@@ -401,29 +457,49 @@ def phase_pipeline(fq: str, truth: dict) -> dict:
     bins = sorted(f for f in os.listdir(os.path.join(out, "3.clustering"))
                   if f.endswith(".fq"))
     latent = np.load(os.path.join(out, "2.vae", "latent.npz"))["arr_0"]
-    log(f"pipeline: steps 1-3 on cuda in {wall:.3f} s: "
+    log(f"{what}: steps 1-3 on cuda in {wall:.3f} s: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items()))
-    log(f"pipeline: step-1 phases: stream {stats['stream_s']:.3f} s, "
-        f"sort-join {stats['sortjoin_s']:.3f} s, replay "
-        f"{stats['replay_s']:.3f} s; {stats['windows']} windows, "
-        f"{stats['sorted_windows']} sorted")
-    log(f"pipeline: scan launches {launches}; {len(clusters)} barcodes "
+    log_stats(what, stats)
+    log(f"{what}: scan launches {launches}; {len(clusters)} barcodes "
         f"clustered, latent {latent.shape}, {len(bins)} bin FASTQs; "
         f"ARI vs truth {ari:.6f} on {len(labelled)} labelled barcodes")
     if not (latent.ndim == 2 and latent.shape[1] == cfg.model.latent_dim
             and np.isfinite(latent).all()):
-        raise AssertionError(f"bad latent {latent.shape}")
+        raise AssertionError(f"{what}: bad latent {latent.shape}")
     if len(bins) != len(set(clusters.values())):
-        raise AssertionError(f"{len(bins)} bin FASTQs for "
+        raise AssertionError(f"{what}: {len(bins)} bin FASTQs for "
                              f"{len(set(clusters.values()))} clusters")
     if ari < ARI_GATE:
-        raise AssertionError(f"ARI {ari} below {ARI_GATE}")
+        raise AssertionError(f"{what}: ARI {ari} below {ARI_GATE}")
     return {"out": out, "wall_s": wall, "steps": steps, "stats": stats,
             "launches": launches, "ari": ari, "n_barcodes": len(clusters),
             "feature_dir": pipe.feature_dir}
 
 
+def phase_pipeline(fq: str, truth: dict) -> dict:
+    from pangaea_tpu_torch.config import ClusterConfig, PangaeaConfig
+    cfg = PangaeaConfig(interleaved_reads=fq,
+                        output=os.path.join(smoke_dir(), "run"),
+                        steps="1,2,3",
+                        cluster=ClusterConfig(n_clusters=N_CLUSTERS))
+    return run_pipeline("pipeline", cfg, truth, FILL_SCANS)
+
+
 # ---- phase 4 -------------------------------------------------------------
+
+def same_features(a: tuple, b: tuple) -> bool:
+    """Barcode order and both matrices byte-equal."""
+    return (list(a[0]) == list(b[0])
+            and all(x.astype("int64").tobytes() == y.astype("int64").tobytes()
+                    for x, y in zip(a[1:], b[1:])))
+
+
+def load_features(feature_dir: str) -> tuple:
+    from pangaea_tpu_torch.config import FeatureConfig
+    from pangaea_tpu_torch.features import FeatureExtractor
+    return FeatureExtractor(FeatureConfig(), feature_dir,
+                            device="cpu").load_features()
+
 
 def phase_exact(fq: str, feature_dir: str) -> None:
     """Step 1 with the plain versions on the CPU must reproduce the
@@ -438,10 +514,7 @@ def phase_exact(fq: str, feature_dir: str) -> None:
     names, abd, tnf = fe_cpu.extract_features(interleaved=fq)
     secs = time.perf_counter() - t0
     fe_gpu = FeatureExtractor(FeatureConfig(), feature_dir, device="cpu")
-    g_names, g_abd, g_tnf = fe_gpu.load_features()
-    if not (list(names) == list(g_names)
-            and abd.astype("int64").tobytes() == g_abd.astype("int64").tobytes()
-            and tnf.astype("int64").tobytes() == g_tnf.astype("int64").tobytes()):
+    if not same_features((names, abd, tnf), fe_gpu.load_features()):
         raise AssertionError("CPU step-1 matrices differ from the card's")
     for cpu_path, gpu_path in ((fe_cpu.abd_gz, fe_gpu.abd_gz),
                                (fe_cpu.tnf_gz, fe_gpu.tnf_gz)):
@@ -453,21 +526,96 @@ def phase_exact(fq: str, feature_dir: str) -> None:
         f"abundance {abd.shape} and TNF {tnf.shape} byte-equal to the card's")
 
 
-def kernel_records(n_main: int, launches: dict, at_cap: dict) -> list:
-    """The JSON record of every kernel: the main path's timed at its
-    scan length, cumsum (off the path) from its measurement at the cap."""
+# ---- phases 5-6 ------------------------------------------------------------
+
+def run_step1(what: str, inputs: dict, expect: tuple, kernels,
+              spill: str, store: str, **feature) -> dict:
+    """Step 1 alone on cuda with the launch counts zeroed just before;
+    its matrices must equal ``expect`` and its stats must name the path
+    that ran."""
+    import torch
+    from pangaea_tpu_torch.config import FeatureConfig
+    from pangaea_tpu_torch.features import FeatureExtractor
+    from pangaea_tpu_torch.kernels import scan
+    d = os.path.join(smoke_dir(), what)
+    shutil.rmtree(d, ignore_errors=True)
+    fe = FeatureExtractor(FeatureConfig(**feature), d, device="cuda")
+    scan.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fe.extract_features(**inputs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    stats = fe.stats
+    log(f"{what}: step 1 on cuda in {secs:.3f} s; scan launches {launches}")
+    log_stats(what, stats)
+    if (stats["spill"], stats["store"]) != (spill, store):
+        raise AssertionError(f"{what}: ran spill {stats['spill']} / store "
+                             f"{stats['store']}, expected {spill} / {store}")
+    check_launched(what, launches, kernels)
+    if not same_features(got, expect):
+        raise AssertionError(f"{what}: matrices differ from the in-cap run")
+    log(f"{what}: {len(got[0])} barcodes byte-equal to the in-cap run")
+    return {"launches": launches, "stats": dict(stats), "seconds": secs}
+
+
+def phase_spill(fq: str, feature_dir: str) -> dict:
+    expect = load_features(feature_dir)
+    inputs = {"interleaved": fq}
+    spill_dir = os.path.join(smoke_dir(), "spill_store")
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    runs = {
+        "spill-agg-device": run_step1(
+            "spill-agg-device", inputs, expect, ALL_SCANS, "agg", "device",
+            sortjoin_max_windows=SPILL_CAP),
+        "spill-agg-disk": run_step1(
+            "spill-agg-disk", inputs, expect, ALL_SCANS, "agg", "disk",
+            sortjoin_max_windows=SPILL_CAP, spill_store="disk",
+            spill_dir=spill_dir),
+        "spill-raw": run_step1(
+            "spill-raw", inputs, expect, FILL_SCANS, "raw", "host",
+            sortjoin_max_windows=SPILL_CAP, spill_agg="off"),
+    }
+    if os.listdir(spill_dir):
+        raise AssertionError(f"disk spill left {os.listdir(spill_dir)}")
+    return runs
+
+
+def phase_paired(r1: str, r2: str, truth: dict) -> dict:
+    from pangaea_tpu_torch.pipeline import cli
+    parser = cli.build_parser()
+    args = parser.parse_args(["-1", r1, "-2", r2, "-o",
+                              os.path.join(smoke_dir(), "paired_run"),
+                              "-c", str(N_CLUSTERS), "-st", "1,2,3"])
+    cli.check_supported(parser, args)
+    run = run_pipeline("paired", cli.config_from_args(args), truth,
+                       ALL_SCANS)
+    if run["stats"]["io"] != "native" or run["stats"]["spill"] != "none":
+        raise AssertionError(f"paired: step 1 ran {run['stats']}")
+    run["spill"] = run_step1(
+        "paired-spill-agg", {"reads1": r1, "reads2": r2},
+        load_features(run["feature_dir"]), ALL_SCANS, "agg", "device",
+        sortjoin_max_windows=SPILL_CAP)
+    return run
+
+
+def kernel_records(lengths: dict, by_path: dict) -> list:
+    """The JSON record of every kernel, timed at ``lengths[name]``;
+    launches summed over the driven paths, and per path."""
     import torch
     recs = []
     for i, (name, op, replaces) in enumerate(KERNELS):
-        if KERNELS[i] in PATH_KERNELS:
-            r = scan_measure(name, op, n_main, seed=200 + i)
-            log_measure(name, r)
-            torch.cuda.empty_cache()
-        else:
-            r = at_cap[name]
+        r = scan_measure(name, op, lengths[name], seed=200 + i)
+        log_measure(name, r)
+        torch.cuda.empty_cache()
+        per_path = {p: l[name] for p, l in by_path.items()}
         recs.append({"name": name, "route": "cuda",
                      "source": "pangaea_tpu_torch/csrc/scan.cu",
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": sum(per_path.values()),
+                     "launches_by_path": per_path,
+                     "n": lengths[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
@@ -490,22 +638,44 @@ def main() -> int:
     sys.path.insert(0, HERE)
 
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
     kind = torch.cuda.get_device_name(0)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {kind}")
     log(card_line())
 
-    phase_build()
-    at_cap = phase_kernels()
-    phase_repeat()
-    fq, truth = sim_data()
-    run = phase_pipeline(fq, truth)
+    phase("build", phase_build)
+    phase("kernels", phase_kernels)
+    phase("repeat", phase_repeat)
+    (fq,), truth = phase("simulate", sim_data, "data", SIM, False)
+    run = phase("pipeline", phase_pipeline, fq, truth)
+    phase("exact", phase_exact, fq, run["feature_dir"])
+    spills = phase("spill", phase_spill, fq, run["feature_dir"])
+    (r1, r2), ptruth = phase("simulate_paired", sim_data, "data_paired",
+                             PAIRED_SIM, True)
+    paired = phase("paired", phase_paired, r1, r2, ptruth)
+    by_path = {"pipeline": run["launches"],
+               **{k: v["launches"] for k, v in spills.items()},
+               "paired": paired["launches"],
+               "paired-spill-agg": paired["spill"]["launches"]}
     n_main = run["stats"]["sorted_windows"]
-    records = kernel_records(n_main, run["launches"], at_cap)
-    copies = {str(n): copy_ms(n) for n in (n_main, SCAN_CAP)}
+    n_paired = paired["stats"]["sorted_windows"]
+    records = phase("timing", kernel_records,
+                    {"cummax": n_main, "cummin_reverse": n_main,
+                     "cumsum": n_paired}, by_path)
+    copies = {str(n): copy_ms(n) for n in sorted({n_main, n_paired,
+                                                  SCAN_CAP})}
     torch.cuda.empty_cache()
-    phase_exact(fq, run["feature_dir"])
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s; phases "
+        + json.dumps({k: round(v, 3) for k, v in phase_s.items()}))
     log(json.dumps({"copy_ms": copies}))
     log(json.dumps({"kernels": records}))
     log(card_line())

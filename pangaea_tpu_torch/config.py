@@ -32,7 +32,8 @@ class FeatureConfig:
     bug_compat_boundary_leak: bool = True
     # jellyfish --min-qual-char=? is always applied on the paired-reads
     # path (src/feature.py:76-86) and never on the interleaved path
-    # (src/feature.py:94). The port runs the interleaved path only.
+    # (src/feature.py:94); the sort-join reproduces it with the weighted
+    # (masked-global) join. None counts paired input unmasked.
     min_qual_char: Optional[str] = "?"
     # Host-side streaming batch geometry.
     reads_per_batch: int = 65536
@@ -40,8 +41,9 @@ class FeatureConfig:
     # Pre-scan a read-length sample and pack rows at the observed maximum
     # (rounded up to 8) instead of max_read_len: padding windows beyond
     # the read carry the sort/histogram sentinel but still cost work. A
-    # longer read appearing later is still exact: the packer splits it
-    # across continuation rows.
+    # longer read appearing later is still exact: the native reader
+    # raises and step 1 reruns once at max_read_len (the Python packer
+    # splits it across continuation rows).
     auto_row_len: bool = True
     # Group-histogram implementation: 'auto', 'scatter', 'segsum', or
     # 'sortjoin'. The port runs the sort-join ('auto' and 'sortjoin');
@@ -51,12 +53,19 @@ class FeatureConfig:
     # uploads uint8 codes from pinned memory and does not read this.
     pack_transfers: str = "auto"
     # Device window cap: k-mer windows held and sorted on the device at
-    # once. Past it pangaea_tpu spills keys to the host; the port raises
-    # NotImplementedError there (spill is queued in ROADMAP.md).
+    # once. A larger stream spills (decided up front from a sample of the
+    # file, or mid-stream) and is still read once.
     sortjoin_max_windows: int = 256 * 1024 * 1024
-    # Past-the-cap spill knobs (pangaea_tpu only; see above).
+    # Past-the-cap spill: 'auto'/'on' aggregate each chunk of
+    # spill_agg_windows windows on the device (sort + run-length encode)
+    # and join only the unique runs; 'off' moves the raw keys to host RAM
+    # and joins them one key range at a time.
     spill_agg: str = "auto"
     spill_agg_windows: int = 32 * 1024 * 1024
+    # Where the aggregated spill's per-window run ids and unique runs
+    # live: 'device', 'host' (RAM) or 'disk' (files under spill_dir, flat
+    # host RSS). 'auto' = disk when spill_dir is set, else device until
+    # spill_device_budget bytes, then host.
     spill_store: str = "auto"
     spill_dir: Optional[str] = None
     spill_device_budget: int = 4 * 1024 * 1024 * 1024

@@ -1,13 +1,31 @@
 """Step-1 orchestrator: streams reads through the sort-join feature kernels.
 
-Port of pangaea_tpu/features.py on the main path: interleaved input,
-k <= 15, the whole window set within ``sortjoin_max_windows``. One pass
-over the FASTQ collects every window's canonical k-mer key and the TNF
-counts; one sort of all keys gives every window's global k-mer count and
-so its abundance bin; a replay of the recorded group ids histograms the
-bins per barcode. This replaces the reference's jellyfish + count_kmer +
-count_tnf fan-out (src/feature.py:28-39), which reads the FASTQ three
-times.
+Port of pangaea_tpu/features.py's sort-join path: interleaved (-i) or
+paired (-1/-2) input, k <= 15, any input size. One pass over the FASTQ
+collects every window's canonical k-mer key and the TNF counts; one sort
+of all keys gives every window's global k-mer count and so its abundance
+bin; a replay of the recorded group ids histograms the bins per barcode.
+This replaces the reference's jellyfish + count_kmer + count_tnf fan-out
+(src/feature.py:28-39), which reads the FASTQ three times.
+
+- **Input.** The native C++ reader (io/fast_packing.py) streams the
+  groups whenever the reference's boundary-leak grouping is kept
+  (``bug_compat_boundary_leak``, the default), as pangaea_tpu does; the
+  Python packer (io/packing.py) streams them otherwise. Both give the
+  same batches' windows.
+- **Quality masking.** jellyfish counts paired input with
+  ``--min-qual-char`` (src/feature.py:76-86) and interleaved input
+  unmasked (:94). On paired input with ``min_qual_char`` set the join is
+  WEIGHTED: each window carries its unmasked key with weight 1 iff it
+  survives masking (kernels/features.py §quality-masked sort-join).
+- **Past the cap.** When the window set would exceed
+  ``sortjoin_max_windows`` (estimated up front from a sample of the
+  file, or found mid-stream), the stream is still read once: with
+  ``spill_agg`` on (the default) each in-cap chunk of windows is
+  aggregated on the device into unique runs (:class:`_SpillAgg`), whose
+  run ids stay on the device, in host RAM or on disk (``spill_store``);
+  with ``spill_agg='off'`` the raw keys go to host RAM and are joined
+  one key range at a time (:meth:`FeatureExtractor._chunked_sortjoin_bins`).
 
 Artifact names and resume semantics mirror src/feature.py:42-44,67-123:
 ``abundance.k{k}.v{v}.w{w}.m{m}.gz``, ``tnf.m{m}.gz`` and the
@@ -16,10 +34,8 @@ Artifact names and resume semantics mirror src/feature.py:42-44,67-123:
 ``.pkl`` caches of them: those are pandas pickles, and the port does
 not depend on pandas (steps 2-3 read the CSVs).
 
-Not ported yet (ROADMAP.md): paired -1/-2 input (the quality-masked
-weighted join), k > 15, the past-the-cap spill, the dense-table and
-segsum paths, and jellyfish dump import/export. They raise
-NotImplementedError.
+Not ported yet (ROADMAP.md): k > 15, the dense-table and segsum paths,
+and jellyfish dump import/export. They raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,26 +45,38 @@ import csv
 import gzip
 import logging
 import os
+import shutil
+import tempfile
 import time
-from typing import Iterator, List, Optional, Tuple
+import zlib
+from typing import Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from pangaea_tpu_torch.config import FeatureConfig
-from pangaea_tpu_torch.io.fastq import iter_fastq_records
+from pangaea_tpu_torch.io.fast_packing import (OverlongReadError,
+                                               native_group_events,
+                                               native_group_events_paired)
 from pangaea_tpu_torch.io.grouping import (iter_barcode_groups,
-                                           iter_read_pairs_interleaved)
+                                           iter_read_pairs_interleaved,
+                                           iter_read_pairs_paired)
 from pangaea_tpu_torch.io.packing import GroupPacker, PackedBatch
 from pangaea_tpu_torch.io.prefetch import prefetch
 from pangaea_tpu_torch.kernels.encode import num_canonical_kmers
 from pangaea_tpu_torch.kernels.features import (abundance_histogram_from_bins,
                                                 batch_kmer_keys,
+                                                batch_kmer_keys_weighted,
                                                 kmer_key_sentinel,
+                                                map_run_bins,
                                                 rank_lut_tensor,
                                                 sortjoin_bins,
+                                                sortjoin_bins_weighted,
                                                 sortjoin_pad_size,
+                                                spill_aggregate,
+                                                spill_aggregate_weighted,
                                                 tnf_histogram_segsum)
+from pangaea_tpu_torch.native import NativeFastqReader
 from pangaea_tpu_torch.utils import (DeviceLike, replacing, resolve_device,
                                      synchronize)
 
@@ -60,6 +88,227 @@ log = logging.getLogger(__name__)
 _TRIM_QUANTUM = 2048
 
 Features = Tuple[np.ndarray, np.ndarray, np.ndarray]
+# a batch's windows: (keys,) or, on the weighted path, (keys, weights)
+Part = Tuple[torch.Tensor, ...]
+HostOrDevice = Union[np.ndarray, torch.Tensor]
+
+
+class _SpillAgg:
+    """Device pre-aggregation store of the past-the-cap spill.
+
+    Phase A feeds whole untrimmed batch parts; every ``S`` parts are
+    concatenated and aggregated on the device (kernels/features.py
+    ``spill_aggregate*``: one sort -> per-window run ids + the chunk's
+    unique (key, weight sum) runs). Run ids and unique runs stay on the
+    device, go to host RAM, or go to disk (``FeatureConfig.spill_store``;
+    'auto' is disk when ``spill_dir`` is set, else device until
+    ``spill_device_budget`` bytes, then host). :meth:`finalize_bins` joins
+    the unique runs of every chunk through the weighted sort-join and
+    builds one run -> bin table per chunk; :meth:`batch_bins` maps a
+    batch's windows to bins with one gather on the device. This matches
+    the reference's constant-rate streaming (count_kmer.cpp:186-292 +
+    jellyfish's RAM-bounded hash, src/feature.py:76-86).
+    """
+
+    n_buckets = 64  # key-hash partitions of the disk store
+
+    def __init__(self, fe: "FeatureExtractor", weighted: bool,
+                 per_batch: int):
+        cfg = fe.cfg
+        self.fe = fe
+        self.weighted = weighted
+        self.per_batch = per_batch
+        self.S = max(1, min(cfg.spill_agg_windows,
+                            cfg.sortjoin_max_windows) // per_batch)
+        store = cfg.spill_store
+        if store == "auto":
+            store = "disk" if cfg.spill_dir else "device"
+        if store not in ("device", "host", "disk"):
+            raise ValueError(f"unknown spill_store {cfg.spill_store!r}")
+        if store == "disk" and not cfg.spill_dir:
+            raise ValueError("spill_store='disk' requires spill_dir")
+        self.store = store
+        self.budget = cfg.spill_device_budget
+        self.dev_bytes = 0
+        self.buf: List[Part] = []
+        self.groups: List[dict] = []
+        self.n_entries = 0  # unique runs joined in phase B
+        self._cur_g = -1
+        self._cur_bins: Optional[torch.Tensor] = None
+        # disk mode keeps host RSS flat: unique runs append to
+        # key-hash-partitioned bucket files (equal keys share a bucket,
+        # so per-bucket joins are global and exact) carrying (chunk,
+        # run_id) back-pointers, and the per-chunk run -> bin tables live
+        # in memmapped files. Each extraction gets its own directory.
+        self.dir = None
+        if store == "disk":
+            os.makedirs(cfg.spill_dir, exist_ok=True)
+            self.dir = tempfile.mkdtemp(prefix="spill.", dir=cfg.spill_dir)
+            self._bucket_paths = [os.path.join(self.dir, f"bucket_{b}.bin")
+                                  for b in range(self.n_buckets)]
+            for p in self._bucket_paths:
+                open(p, "wb").close()
+
+    # ---- phase A ---------------------------------------------------------
+
+    def add_part(self, part: Part) -> None:
+        """part: (keys[, weights]) device tensors of exactly per_batch
+        windows."""
+        self.buf.append(part)
+        if len(self.buf) == self.S:
+            self._flush()
+
+    def finish(self) -> None:
+        if self.buf:
+            self._flush()
+
+    def _flush(self) -> None:
+        parts, self.buf = self.buf, []
+        keys = torch.cat([p[0] for p in parts])
+        k = self.fe.cfg.kmer
+        if self.weighted:
+            out = spill_aggregate_weighted(
+                keys, torch.cat([p[1] for p in parts]), k=k)
+        else:
+            out = spill_aggregate(keys, k=k)
+        del parts
+        run_ids, uniq, uw, n_runs, n_valid = out
+        uniq, uw = uniq[:n_valid], uw[:n_valid]
+        n_win = keys.numel()
+        grp = {"n_windows": n_win, "n_runs": n_runs, "n_valid": n_valid,
+               "bins_table": None}
+        cost = 4 * n_win + 8 * n_valid
+        if self.store == "device" and self.dev_bytes + cost > self.budget:
+            log.info("spill run-id store: device budget reached (%d B); "
+                     "later chunks go to host RAM", self.dev_bytes)
+            self.store = "host"
+        if self.store == "device":
+            grp.update(run_ids=run_ids, uniq=uniq, uw=uw)
+            self.dev_bytes += cost
+        elif self.store == "host":
+            grp.update(run_ids=run_ids.cpu().numpy(),
+                       uniq=uniq.cpu().numpy(), uw=uw.cpu().numpy())
+        else:  # disk: run ids to a per-chunk file, uniques to buckets
+            path = os.path.join(self.dir, f"runids_{len(self.groups)}.bin")
+            run_ids.cpu().numpy().tofile(path)
+            grp["run_ids"] = path
+            self._bucket_append(uniq.cpu().numpy(), uw.cpu().numpy(),
+                                len(self.groups))
+        self.groups.append(grp)
+        log.info("spill chunk %d aggregated: %d windows -> %d unique runs "
+                 "(%.1fx), store=%s", len(self.groups), n_win,
+                 max(1, n_valid), n_win / max(1, n_valid), self.store)
+
+    def _bucket_append(self, uniq: np.ndarray, uw: np.ndarray,
+                       chunk_id: int) -> None:
+        """Append a chunk's unique runs to the key-hash bucket files as
+        (key, weight, chunk, run_id) int32 rows."""
+        nv = uw.shape[0]
+        if nv == 0:
+            return
+        hv = uniq.astype(np.uint32)
+        b = ((hv * np.uint32(2654435761)) >> np.uint32(26)).astype(np.int64)
+        rows = np.column_stack([uniq.astype(np.int32), uw.astype(np.int32),
+                                np.full(nv, chunk_id, np.int32),
+                                np.arange(nv, dtype=np.int32)])
+        for bi in np.unique(b):
+            with open(self._bucket_paths[bi], "ab") as f:
+                rows[b == bi].tofile(f)
+
+    # ---- phase B ---------------------------------------------------------
+
+    def _table_size(self, g: dict) -> int:
+        return max(1, g["n_runs"])
+
+    def _finalize_disk(self) -> None:
+        """Flat-RSS phase B: one bucket in memory at a time; bins go into
+        per-chunk memmapped run -> bin tables."""
+        tables = []
+        for i, g in enumerate(self.groups):
+            path = os.path.join(self.dir, f"table_{i}.npy")
+            mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.int32,
+                                           shape=(self._table_size(g),))
+            mm[:] = -1
+            tables.append(mm)
+            g["bins_table"] = path
+        for bi, p in enumerate(self._bucket_paths):
+            rows = np.fromfile(p, np.int32).reshape(-1, 4)
+            if rows.shape[0] == 0:
+                continue
+            self.n_entries += rows.shape[0]
+            bins = self.fe._chunked_sortjoin_bins([(rows[:, 0], rows[:, 1])],
+                                                  weighted=True)
+            chunks, runs = rows[:, 2], rows[:, 3]
+            for c in np.unique(chunks):
+                m = chunks == c
+                tables[c][runs[m]] = bins[m]
+            log.info("disk spill: bucket %d/%d joined (%d entries)",
+                     bi + 1, self.n_buckets, rows.shape[0])
+        for mm in tables:
+            mm.flush()
+
+    def finalize_bins(self) -> None:
+        """Join all chunks' unique (key, weight) runs; build one run ->
+        bin table per chunk (-1 for the sentinel run). Within the device
+        cap the join runs on the device over the device-resident and
+        uploaded host-resident runs; past it, on the host ranged join."""
+        if self.store == "disk":
+            self._finalize_disk()
+            return
+        fe, groups = self.fe, self.groups
+        dev = fe.device
+        E = sum(g["n_valid"] for g in groups)
+        self.n_entries = E
+        if E <= fe.cfg.sortjoin_max_windows:
+            c = fe.cfg
+            keys = torch.cat([fe._to_device(g["uniq"]) for g in groups])
+            wts = torch.cat([fe._to_device(g["uw"]) for g in groups])
+            bins = sortjoin_bins_weighted(keys, wts, k=c.kmer,
+                                          window=c.window_size,
+                                          vector_size=c.vector_size)
+            del keys, wts
+        else:
+            bins = torch.from_numpy(fe._chunked_sortjoin_bins(
+                [(fe._to_host(g["uniq"]), fe._to_host(g["uw"]))
+                 for g in groups], weighted=True))
+        off = 0
+        for g in groups:
+            nv = g["n_valid"]
+            table = torch.full((self._table_size(g),), -1, dtype=torch.int32,
+                               device=bins.device)
+            table[:nv] = bins[off:off + nv]
+            off += nv
+            g["bins_table"] = table
+            del g["uniq"], g["uw"]
+        del bins
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # ---- phase C ---------------------------------------------------------
+
+    def batch_bins(self, j: int) -> torch.Tensor:
+        """Device (per_batch,) bins of global batch j (stream order);
+        maps one chunk at a time."""
+        g, r = divmod(j, self.S)
+        if g != self._cur_g:
+            grp = self.groups[g]
+            rid = grp["run_ids"]
+            if isinstance(rid, str):
+                rid = np.fromfile(rid, dtype=np.int32)
+            table = grp["bins_table"]
+            if isinstance(table, str):
+                table = np.load(table)
+            self._cur_bins = None  # free the last chunk's bins first
+            self._cur_bins = map_run_bins(self.fe._to_device(table),
+                                          self.fe._to_device(rid))
+            self._cur_g = g
+        lo = r * self.per_batch
+        return self._cur_bins[lo:lo + self.per_batch]
+
+    def cleanup(self) -> None:
+        """Remove the disk store's files (no-op for the other stores)."""
+        if self.dir is not None:
+            shutil.rmtree(self.dir, ignore_errors=True)
 
 
 class FeatureExtractor:
@@ -73,7 +322,7 @@ class FeatureExtractor:
         self.device = resolve_device(device)
         self._rl: Optional[int] = None  # auto row length for this extract
         self._pending_save = None
-        # window counts and phase seconds of the last extraction
+        # window counts, paths and phase seconds of the last extraction
         self.stats: dict = {}
         self.dir = feature_dir
         os.makedirs(feature_dir, exist_ok=True)
@@ -88,21 +337,30 @@ class FeatureExtractor:
     @property
     def row_len(self) -> int:
         """Packed row width: the auto-sampled length when enabled, else
-        cfg.max_read_len. Rows narrower than the longest read are still
-        exact — the packer splits overlong reads across continuation
-        rows."""
+        cfg.max_read_len. The Python packer splits longer reads across
+        continuation rows; the native path raises OverlongReadError and
+        extract_features retries once at cfg.max_read_len."""
         return self._rl or self.cfg.max_read_len
 
-    def _auto_row_len(self, interleaved: str,
+    def _auto_row_len(self, reads1: str, reads2: str, interleaved: str,
                       sample: int = 50_000) -> Optional[int]:
-        """Max read length over a prefix sample, rounded up to 8 (an
-        underestimate only costs continuation rows, never output)."""
+        """Max read length over a prefix sample (through the native
+        reader), rounded up to 8. Padding windows beyond the read cost
+        sort and histogram work; an underestimate costs one retry, never
+        wrong output."""
         c = self.cfg
+        paths = [interleaved] if interleaved else [
+            p for p in (reads1, reads2) if p]
         mx = 0
-        for n, rec in enumerate(iter_fastq_records(interleaved)):
-            if n >= sample:
-                break
-            mx = max(mx, len(rec.seq))
+        remaining = sample
+        for p in paths:
+            with NativeFastqReader(p, max_len=1) as rd:
+                while remaining > 0:
+                    out = rd.read(min(65536, remaining))
+                    if out is None:
+                        break
+                    mx = max(mx, int(out[1].max(initial=0)))
+                    remaining -= len(out[1])
         if mx == 0:
             return None
         row = min(c.max_read_len, max(c.kmer, -(-mx // 8) * 8))
@@ -115,39 +373,118 @@ class FeatureExtractor:
 
     def sortjoin_eligible(self, reads1: str, reads2: str,
                           interleaved: str) -> bool:
-        """The port's sort-join covers interleaved input at k <= 15 (the
-        interleaved flow counts unmasked, src/feature.py:94, so the
-        global k-mer multiset is the group stream's)."""
+        """The port's sort-join covers k <= 15 on interleaved input and on
+        paired input (the quality-masked global pass reproduced by the
+        weighted join), at any size (the spill removes the window cap)."""
         c = self.cfg
-        return (bool(interleaved) and c.kmer <= 15
+        return (bool(interleaved or (reads1 and reads2)) and c.kmer <= 15
                 and c.hist_impl in ("auto", "sortjoin"))
+
+    def _estimate_stream_windows(self, path_or_paths) -> Optional[int]:
+        """Sorted-window count the sort-join would produce, estimated by
+        parsing a decompressed prefix sample (up to 4 MiB of the file):
+        records per compressed byte and packed rows per record are
+        measured, then scaled to the file size. Exact when the sample
+        covers the file. A (reads1, reads2) tuple sums both files."""
+        if isinstance(path_or_paths, tuple):
+            parts = [self._estimate_stream_windows(p)
+                     for p in path_or_paths]
+            if any(p is None for p in parts):
+                return None
+            return sum(parts)
+        path = path_or_paths
+        c = self.cfg
+        try:
+            size = os.path.getsize(path)
+            with open(path, "rb") as f:
+                raw = f.read(4 << 20)
+        except OSError:
+            return None
+        if not raw:
+            return 0
+        consumed = len(raw)
+        if path.endswith((".gz", ".bgz")):
+            data = bytearray()
+            buf = bytes(raw)
+            try:
+                while buf:
+                    d = zlib.decompressobj(wbits=31)
+                    data += d.decompress(buf)
+                    if not d.eof:
+                        break  # member continues past the prefix
+                    buf = d.unused_data
+            except zlib.error:
+                pass  # truncated tail of the prefix — expected
+            text = bytes(data)
+        else:
+            text = raw
+        lines = text.split(b"\n")
+        nrec = (len(lines) - 1) // 4  # drop the trailing partial record
+        if nrec == 0:
+            return None
+        rl, step = self.row_len, self.row_len - (c.kmer - 1)
+        rows = 0
+        for seq in lines[1:4 * nrec:4]:
+            n = len(seq)
+            rows += 1 if n <= rl else 1 + -(-(n - rl) // step)
+        if consumed >= size:
+            est_rows = rows  # whole file sampled: exact
+        else:
+            est_rows = int(rows * (size / consumed)) + 1
+        wrow = rl - c.kmer + 1
+        est_batches = -(-est_rows // c.reads_per_batch)
+        return est_batches * c.reads_per_batch * wrow
 
     # ---- host stream ------------------------------------------------------
 
-    def _events(self, interleaved: str):
-        """("batch", b) / ("chunk", names) events of the group stream;
-        keep_dropped: the global counts must cover every read, like
-        jellyfish over the whole file (src/feature.py:76-86)."""
+    def _group_events(self, reads1: str, reads2: str, interleaved: str):
+        """("native" | "python", events): the ("batch", b) / ("chunk",
+        names) group stream, with keep_dropped — the global counts must
+        cover every read, like jellyfish over the whole file
+        (src/feature.py:76-86). The native reader streams wherever
+        pangaea_tpu's does (bug_compat_boundary_leak), the Python packer
+        otherwise. Interleaved input wins when both forms
+        are given. Paired streams carry mismatched R1/R2 pairs as
+        global-only seg -1 reads (jellyfish counts them although
+        count_kmer.cpp:195-197 skips them from grouping) and, when
+        masked, the lowq plane."""
         c = self.cfg
+        masked = bool(reads1 and reads2 and not interleaved
+                      and c.min_qual_char)
+        mq = c.min_qual_char if masked else None
+        G = self.groups_per_chunk
+        if c.bug_compat_boundary_leak:
+            if interleaved:
+                return "native", native_group_events(
+                    interleaved, c.min_length, self.row_len,
+                    c.reads_per_batch, G, keep_dropped=True)
+            return "native", native_group_events_paired(
+                reads1, reads2, c.min_length, self.row_len,
+                c.reads_per_batch, G, keep_dropped=True, min_qual_char=mq)
         gp = GroupPacker(min_len=c.min_length, max_read_len=self.row_len,
                          overlap=c.kmer - 1,
                          reads_per_batch=c.reads_per_batch,
-                         groups_per_chunk=self.groups_per_chunk,
-                         keep_dropped=True)
-        groups = iter_barcode_groups(iter_read_pairs_interleaved(interleaved),
+                         groups_per_chunk=G, keep_dropped=True,
+                         min_qual_char=mq)
+        pairs = (iter_read_pairs_interleaved(interleaved) if interleaved
+                 else iter_read_pairs_paired(reads1, reads2,
+                                             drop_unpaired=False))
+        groups = iter_barcode_groups(pairs,
                                      bug_compat=c.bug_compat_boundary_leak)
-        return gp.iter_events(groups)
+        return "python", gp.iter_events(groups)
 
     def _host_tensors(self, events) -> Iterator:
-        """Batch arrays as CPU tensors, page-locked when bound for the
-        card (runs on the prefetch thread, so pinning overlaps the
-        device work)."""
+        """Batch arrays as CPU tensors (codes, lengths, seg_ids, cont
+        [, lowq]), page-locked when bound for the card (runs on the
+        prefetch thread, so pinning overlaps the device work)."""
         pin = self.device.type == "cuda"
         for kind, payload in events:
             if kind == "batch":
                 b: PackedBatch = payload
-                ts = tuple(torch.from_numpy(a) for a in
-                           (b.codes, b.lengths, b.seg_ids, b.cont))
+                arrays = [b.codes, b.lengths, b.seg_ids, b.cont]
+                if b.lowq is not None:
+                    arrays.append(b.lowq)
+                ts = tuple(torch.from_numpy(a) for a in arrays)
                 if pin:
                     ts = tuple(t.pin_memory() for t in ts)
                 payload = (b, ts)
@@ -160,16 +497,46 @@ class FeatureExtractor:
             return ts
         return tuple(t.to(self.device, non_blocking=True) for t in ts)
 
+    def _to_device(self, x: HostOrDevice) -> torch.Tensor:
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        return x.to(self.device)
+
+    @staticmethod
+    def _to_host(x: HostOrDevice) -> np.ndarray:
+        return x if isinstance(x, np.ndarray) else x.cpu().numpy()
+
     # ---- sort-join ----------------------------------------------------------
 
-    def group_features_sortjoin(self, interleaved: str) -> Features:
+    def _pad_part(self, n: int, weighted: bool) -> Part:
+        """n sentinel windows (weight 0 on the weighted path)."""
+        keys = torch.full((n,), kmer_key_sentinel(self.cfg.kmer),
+                          dtype=torch.int32, device=self.device)
+        if weighted:
+            return keys, torch.zeros(n, dtype=torch.int32,
+                                     device=self.device)
+        return (keys,)
+
+    def _bins(self, keys: torch.Tensor, weights: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+        c = self.cfg
+        if weights is None:
+            return sortjoin_bins(keys, k=c.kmer, window=c.window_size,
+                                 vector_size=c.vector_size)
+        return sortjoin_bins_weighted(keys, weights, k=c.kmer,
+                                      window=c.window_size,
+                                      vector_size=c.vector_size)
+
+    def group_features_sortjoin(self, reads1: str = "", reads2: str = "",
+                                interleaved: str = "") -> Features:
         """Single-pass features via the sort-join abundance kernels.
 
         Phase A streams the group chunks once: per batch it collects the
-        canonical k-mer key of every window and accumulates the TNF
-        histogram. Phase B sorts all keys to derive each window's global
-        count == abundance bin. Phase C replays the recorded seg_ids to
-        histogram the bins per barcode."""
+        canonical k-mer key (and, masked, the weight) of every window and
+        accumulates the TNF histogram. Phase B joins all keys to derive
+        each window's global count == abundance bin: one sort in cap, the
+        aggregated or the ranged spill past it. Phase C replays the
+        recorded seg_ids to histogram the bins per barcode."""
         c = self.cfg
         dev = self.device
         overlap = c.kmer - 1
@@ -179,94 +546,257 @@ class FeatureExtractor:
         cap = c.sortjoin_max_windows
         rows = c.reads_per_batch
         wrow = self.row_len - c.kmer + 1
-        keys_parts: List[torch.Tensor] = []
+        per_batch = rows * wrow
+        # the interleaved flow counts UNMASKED (src/feature.py:94), so
+        # weighting requires paired-only input
+        weighted = bool(reads1 and reads2 and not interleaved
+                        and c.min_qual_char)
+        t0 = time.perf_counter()
+        io, events = self._group_events(reads1, reads2, interleaved)
+        spill = False
+        agg: Optional[_SpillAgg] = None
+        est = self._estimate_stream_windows(
+            interleaved if interleaved else (reads1, reads2))
+        if est is not None and est * 21 // 20 > cap:
+            log.info("sort-join spill mode: ~%d windows > device cap %d",
+                     est, cap)
+            spill = True
+            if c.spill_agg != "off":
+                agg = _SpillAgg(self, weighted, per_batch)
+        # device parts in cap; host numpy parts once spilled raw
+        keys_parts: List[Tuple] = []
         chunk_meta = []  # (names, [(seg_ids, kept_rows)], thist)
         segs = []
         thist = None
         total = 0
-        t0 = time.perf_counter()
-        events = self._host_tensors(self._events(interleaved))
-        for kind, payload in prefetch(events, depth=4):
-            if kind == "chunk":
-                chunk_meta.append((payload, segs, thist if thist is not None
+        ranges = 0
+        try:
+            for kind, payload in prefetch(self._host_tensors(events),
+                                          depth=4):
+                if kind == "chunk":
+                    chunk_meta.append((payload, segs,
+                                       thist if thist is not None
+                                       else self._zeros(G, ncols)))
+                    segs, thist = [], None
+                    log.info("sortjoin pass A: %d barcodes, %d windows",
+                             sum(len(m[0]) for m in chunk_meta), total)
+                    continue
+                b, host = payload
+                codes, lengths, seg, cont, *lowq = self._upload(host)
+                if thist is None:
+                    thist = self._zeros(G, ncols)
+                # a tail batch's trailing pad rows are pure sentinel sort
+                # cost: keep only the filled rows, quantized
+                kept_rows = rows
+                if b.rows_used < rows:
+                    kept_rows = min(rows, -(-b.rows_used // _TRIM_QUANTUM)
+                                    * _TRIM_QUANTUM)
+                if weighted:
+                    # a missing plane would silently give UNMASKED counts
+                    if not lowq:
+                        raise RuntimeError("masked sort-join batch arrived "
+                                           "without a lowq plane")
+                    part = batch_kmer_keys_weighted(
+                        codes, lowq[0], lengths, cont, k=c.kmer,
+                        overlap=overlap)
+                else:
+                    part = (batch_kmer_keys(codes, lengths, cont, k=c.kmer,
+                                            overlap=overlap),)
+                if agg is not None:
+                    # untrimmed: trailing pad windows are sentinel-keyed
+                    # and collapse into the sentinel run
+                    agg.add_part(part)
+                    total += per_batch
+                else:
+                    if kept_rows < rows:
+                        part = tuple(w[:kept_rows * wrow] for w in part)
+                    if spill:
+                        part = tuple(w.cpu().numpy() for w in part)
+                    keys_parts.append(part)
+                    total += len(part[0])
+                segs.append((seg[:kept_rows], kept_rows))
+                tnf_histogram_segsum(thist, codes, lengths, seg, cont,
+                                     k=c.tnf_kmer, overlap=overlap,
+                                     rank_lut=lut)
+                if not spill and total > cap:
+                    log.warning("sort-join overflow (%d windows > cap %d); "
+                                "spilling and continuing (the stream is "
+                                "still read once)", total, cap)
+                    if c.spill_agg != "off":
+                        agg = _SpillAgg(self, weighted, per_batch)
+                        for p in keys_parts:
+                            short = per_batch - len(p[0])
+                            if short:
+                                # re-pad parts the trim cut: the cut
+                                # windows were sentinel pad anyway
+                                p = tuple(torch.cat([w, pw]) for w, pw in
+                                          zip(p, self._pad_part(short,
+                                                                weighted)))
+                            agg.add_part(p)
+                        keys_parts = []
+                    else:
+                        keys_parts = [tuple(w.cpu().numpy() for w in p)
+                                      for p in keys_parts]
+                    spill = True
+            if thist is not None or segs:
+                chunk_meta.append(([], segs, thist if thist is not None
                                    else self._zeros(G, ncols)))
-                segs, thist = [], None
-                log.info("sortjoin pass A: %d barcodes, %d windows",
-                         sum(len(m[0]) for m in chunk_meta), total)
-                continue
-            b, host = payload
-            codes, lengths, seg, cont = self._upload(host)
-            if thist is None:
-                thist = self._zeros(G, ncols)
-            # a tail batch's trailing pad rows are pure sentinel sort
-            # cost: keep only the filled rows, quantized
-            kept_rows = rows
-            if b.rows_used < rows:
-                kept_rows = min(rows, -(-b.rows_used // _TRIM_QUANTUM)
-                                * _TRIM_QUANTUM)
-            keys = batch_kmer_keys(codes, lengths, cont, k=c.kmer,
-                                   overlap=overlap)
-            keys_parts.append(keys[:kept_rows * wrow])
-            total += kept_rows * wrow
-            segs.append((seg[:kept_rows], kept_rows))
-            tnf_histogram_segsum(thist, codes, lengths, seg, cont,
-                                 k=c.tnf_kmer, overlap=overlap,
-                                 rank_lut=lut)
-            if total > cap:
-                raise NotImplementedError(
-                    f"{total} k-mer windows exceed sortjoin_max_windows="
-                    f"{cap}; the past-the-cap spill is not ported yet")
-        if thist is not None or segs:
-            chunk_meta.append(([], segs, thist if thist is not None
-                               else self._zeros(G, ncols)))
-        synchronize(dev)
-        t1 = time.perf_counter()
-        if not chunk_meta or total == 0:
-            return (np.array([], dtype=object),
-                    np.zeros((0, c.vector_size), np.int32),
-                    np.zeros((0, ncols), np.int32))
-        npad = sortjoin_pad_size(total)
-        if npad > total:
-            keys_parts.append(torch.full((npad - total,),
-                                         kmer_key_sentinel(c.kmer),
-                                         dtype=torch.int32, device=dev))
-        keys = torch.cat(keys_parts)
-        del keys_parts
-        bins = sortjoin_bins(keys, k=c.kmer, window=c.window_size,
-                             vector_size=c.vector_size)
-        del keys
-        synchronize(dev)
-        t2 = time.perf_counter()
-        names: List[str] = []
-        abd_dev, tnf_dev = [], []
-        off = 0
-        for cnames, segs, thist in chunk_meta:
-            hist = self._zeros(G, c.vector_size)
-            for seg, kept_rows in segs:
-                kw = kept_rows * wrow
-                abundance_histogram_from_bins(
-                    hist, bins[off:off + kw].view(kept_rows, wrow), seg,
-                    vector_size=c.vector_size)
-                off += kw
-            names += list(cnames)
-            g = len(cnames)
-            abd_dev.append(hist[:g])
-            tnf_dev.append(thist[:g])
-        abd_all = torch.cat(abd_dev).cpu().numpy()
-        tnf_all = torch.cat(tnf_dev).cpu().numpy()
-        t3 = time.perf_counter()
-        self.stats = {"windows": total, "sorted_windows": npad,
+            synchronize(dev)
+            t1 = time.perf_counter()
+            if not chunk_meta or total == 0:
+                return (np.array([], dtype=object),
+                        np.zeros((0, c.vector_size), np.int32),
+                        np.zeros((0, ncols), np.int32))
+            if agg is not None:
+                agg.finish()
+                agg.finalize_bins()
+                sorted_windows = agg.n_entries
+
+                def bins_at(bi, off, kw):
+                    return agg.batch_bins(bi)[:kw]
+            elif spill:
+                bins_host = self._chunked_sortjoin_bins(keys_parts,
+                                                        weighted=weighted)
+                ranges = self._last_ranges
+                sorted_windows = total
+                del keys_parts
+
+                def bins_at(bi, off, kw):
+                    return self._to_device(bins_host[off:off + kw])
+            else:
+                npad = sortjoin_pad_size(total)
+                if npad > total:
+                    keys_parts.append(self._pad_part(npad - total, weighted))
+                cols = [torch.cat([p[i] for p in keys_parts])
+                        for i in range(len(keys_parts[0]))]
+                del keys_parts
+                bins = self._bins(cols[0], cols[1] if weighted else None)
+                del cols
+                sorted_windows = npad
+
+                def bins_at(bi, off, kw):
+                    return bins[off:off + kw]
+            synchronize(dev)
+            t2 = time.perf_counter()
+            names: List[str] = []
+            abd_dev, tnf_dev = [], []
+            off = 0
+            bi = 0
+            for cnames, segs, thist in chunk_meta:
+                hist = self._zeros(G, c.vector_size)
+                for seg, kept_rows in segs:
+                    kw = kept_rows * wrow
+                    abundance_histogram_from_bins(
+                        hist, bins_at(bi, off, kw).view(kept_rows, wrow),
+                        seg, vector_size=c.vector_size)
+                    off += kw
+                    bi += 1
+                names += list(cnames)
+                g = len(cnames)
+                abd_dev.append(hist[:g])
+                tnf_dev.append(thist[:g])
+            abd_all = torch.cat(abd_dev).cpu().numpy()
+            tnf_all = torch.cat(tnf_dev).cpu().numpy()
+            t3 = time.perf_counter()
+        finally:
+            if agg is not None:
+                agg.cleanup()
+        self.stats = {"windows": total, "sorted_windows": sorted_windows,
                       "batches": sum(len(m[1]) for m in chunk_meta),
-                      "chunks": len(chunk_meta),
+                      "chunks": len(chunk_meta), "io": io,
+                      "spill": "agg" if agg is not None
+                      else "raw" if spill else "none",
+                      "store": agg.store if agg is not None
+                      else "host" if spill else "device",
+                      "spill_chunks": len(agg.groups) if agg is not None
+                      else 0,
+                      "ranges": ranges,
                       "stream_s": t1 - t0, "sortjoin_s": t2 - t1,
                       "replay_s": t3 - t2}
-        log.info("sortjoin done: %d barcodes, %d windows (%d sorted)",
-                 len(names), total, npad)
+        log.info("sortjoin done: %d barcodes, %d windows (spill %s)",
+                 len(names), total, self.stats["spill"])
         if not names:
             return (np.array([], dtype=object),
                     np.zeros((0, c.vector_size), np.int32),
                     np.zeros((0, ncols), np.int32))
         return np.array(names), abd_all, tnf_all
+
+    def _chunked_sortjoin_bins(self, host_parts: List[Tuple[np.ndarray, ...]],
+                               weighted: bool = False) -> np.ndarray:
+        """Exact sort-join over host-resident keys, one key-VALUE range at
+        a time, each range within the device window cap.
+
+        Partitioning by key value means equal keys always share a range,
+        so per-range joins are independent and exact — no cross-range
+        merge. Range boundaries come from quantiles of a <= 1M-key
+        sample, so ranges balance even though canonical-key density is 2x
+        mean at the low end of the key space. A hot key with more
+        instances than the cap cannot be split (its range just runs
+        larger, with a warning) — the join is still exact.
+
+        Returns per-window abundance bins in stream order (-1 = invalid
+        or out of range), matching :func:`sortjoin_bins`. With
+        ``weighted`` each part is (keys, weights) and the join is
+        :func:`sortjoin_bins_weighted`; weights ride the partition, so
+        per-range weight sums stay exact. Sets ``_last_ranges`` to the
+        number of ranges joined."""
+        c = self.cfg
+        sent = np.int32(kmer_key_sentinel(c.kmer))
+        v = np.concatenate([p[0] for p in host_parts])
+        w_all = (np.concatenate([p[1] for p in host_parts])
+                 if weighted else None)
+        N = v.shape[0]
+        bins_all = np.full(N, -1, np.int32)
+        self._last_ranges = 0
+        valid = v < sent
+        nval = int(valid.sum())
+        if nval == 0:
+            return bins_all
+        cap = c.sortjoin_max_windows
+        # 5% headroom so quantile jitter rarely pushes a range past the cap
+        nparts = max(1, -(-nval // max(1, cap * 19 // 20)))
+        if nparts > 1:
+            # stride BEFORE masking: v[valid] would copy every valid key
+            # just to stride them away
+            step = max(1, N // 1_000_000)
+            vs = v[::step]
+            sample = np.sort(vs[vs < sent])
+            qpos = (np.arange(1, nparts) * len(sample)) // nparts
+            bounds = np.unique(sample[qpos])
+        else:
+            bounds = np.empty(0, v.dtype)
+        inval_digit = len(bounds) + 1
+        dt = np.uint8 if inval_digit < 255 else np.int32
+        digits = np.searchsorted(bounds, v, side="right").astype(dt)
+        digits[~valid] = inval_digit
+        counts = np.bincount(digits, minlength=inval_digit + 1)[:inval_digit]
+        if counts.max() > cap:
+            log.warning("chunked sort-join: a key range holds %d windows > "
+                        "cap %d (hot keys cannot split across ranges); "
+                        "running one larger sort", int(counts.max()), cap)
+        # Two-deep pipeline: range p+1's host gather and upload are issued
+        # before range p's bins are copied back, so host work overlaps
+        # the device sorts (the joins are independent).
+        pending = None  # (idx, device bins)
+        for p in range(len(counts)):
+            # one flatnonzero scan per range, not an argsort of all digits
+            idx = np.flatnonzero(digits == p)
+            if idx.size == 0:
+                continue
+            keys = self._to_device(v[idx])
+            wts = self._to_device(w_all[idx]) if weighted else None
+            dev_bins = self._bins(keys, wts)
+            del keys, wts
+            if pending is not None:
+                bins_all[pending[0]] = self._to_host(pending[1])
+            pending = (idx, dev_bins)
+            self._last_ranges += 1
+            log.info("chunked sort-join: range %d/%d (%d windows)",
+                     self._last_ranges, int((counts > 0).sum()),
+                     int(idx.size))
+        if pending is not None:
+            bins_all[pending[0]] = self._to_host(pending[1])
+        return bins_all
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.int32, device=self.device)
@@ -309,12 +839,14 @@ class FeatureExtractor:
 
     def _extract_inner(self, reads1: str, reads2: str,
                        interleaved: str) -> Features:
+        if not (interleaved or (reads1 and reads2)):
+            raise ValueError("reads must be specified")
         if not self.sortjoin_eligible(reads1, reads2, interleaved):
             raise NotImplementedError(
-                "the port's step 1 runs interleaved input (-i) at k <= 15 "
-                "with hist_impl 'auto' or 'sortjoin'; paired input, "
-                "k > 15 and the table/segsum paths are not ported yet")
-        return self.group_features_sortjoin(interleaved)
+                "the port's step 1 runs k <= 15 with hist_impl 'auto' or "
+                "'sortjoin'; k > 15 and the table/segsum paths are not "
+                "ported yet")
+        return self.group_features_sortjoin(reads1, reads2, interleaved)
 
     def extract_features(self, reads1: str = "", reads2: str = "",
                          interleaved: str = "", defer_save: bool = False
@@ -329,9 +861,23 @@ class FeatureExtractor:
         if os.path.exists(self.abd_gz) and os.path.exists(self.tnf_gz):
             log.info("features already extracted, loading")
             return self.load_features()
-        self._rl = (self._auto_row_len(interleaved)
-                    if self.cfg.auto_row_len and interleaved else None)
-        names, abd, tnf = self._extract_inner(reads1, reads2, interleaved)
+        self._rl = (self._auto_row_len(reads1, reads2, interleaved)
+                    if self.cfg.auto_row_len else None)
+        try:
+            names, abd, tnf = self._extract_inner(reads1, reads2,
+                                                  interleaved)
+        except OverlongReadError as e:
+            if self._rl is None:
+                raise
+            # a read longer than the sampled maximum appeared on the
+            # native path (the Python packer would have split it): retry
+            # once at the configured width
+            log.warning("auto row length %d too small (%s); retrying at "
+                        "max_read_len=%d", self._rl, e,
+                        self.cfg.max_read_len)
+            self._rl = None
+            names, abd, tnf = self._extract_inner(reads1, reads2,
+                                                  interleaved)
         if defer_save:
             pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
             self._pending_save = pool.submit(self._save, names, abd, tnf)

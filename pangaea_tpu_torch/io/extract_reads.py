@@ -1,8 +1,9 @@
 """Bin materialization: split reads into per-cluster FASTQ files.
 
-Copied from pangaea_tpu.io.extract_reads (the Python path; the native C++
-reader is queued in ROADMAP.md). Behavior contract (reference
-src/cpptools/extract_reads.cpp:40-197):
+Copied from pangaea_tpu.io.extract_reads. :func:`extract_reads` runs the
+native reader's ``pgn_extract_reads`` (C++, like the reference's
+extract_reads; a failure raises).
+Behavior contract (reference src/cpptools/extract_reads.cpp:40-197):
 
 - clusters.tsv lines are ``<cluster_id>\\t<bc1>,<bc2>,...``; lines whose id
   is the string ``-1`` are skipped entirely (their barcodes get no bin).
@@ -20,75 +21,50 @@ src/cpptools/extract_reads.cpp:40-197):
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import List
 
-from pangaea_tpu_torch.io.fastq import BarcodeParser, open_maybe_gzip
+from pangaea_tpu_torch.native import get_lib
 
 
-def read_clusters_tsv(path: str) -> Tuple[Dict[str, str], List[str]]:
-    """Returns (barcode -> cluster-id-string, ordered kept id list)."""
-    barcode2cluster: Dict[str, str] = {}
+def read_cluster_ids(path: str) -> List[str]:
+    """The kept cluster ids of clusters.tsv, in file order."""
     ids: List[str] = []
     with open(path) as f:
         for line in f:
             line = line.rstrip("\n")
-            if not line:
-                continue
-            cid, _, rest = line.partition("\t")
-            if cid == "-1":
-                continue
-            ids.append(cid)
-            for bc in rest.split(","):
-                if bc:
-                    barcode2cluster[bc] = cid
-    return barcode2cluster, ids
+            cid = line.partition("\t")[0]
+            if line and cid != "-1":
+                ids.append(cid)
+    return ids
+
+
+def _extract_reads_native(clusters_tsv: str, output_prefix: str,
+                          reads1: str, reads2: str,
+                          interleaved: str) -> None:
+    """pgn_extract_reads (native/fastq_reader.cpp); raises on failure."""
+    lib = get_lib()
+    if interleaved:
+        rc = lib.pgn_extract_reads(clusters_tsv.encode(),
+                                   output_prefix.encode(),
+                                   interleaved.encode(), b"", 1)
+    else:
+        rc = lib.pgn_extract_reads(clusters_tsv.encode(),
+                                   output_prefix.encode(),
+                                   reads1.encode(), reads2.encode(), 0)
+    if rc < 0:
+        raise OSError(f"native extract_reads failed for {clusters_tsv} "
+                      f"-> {output_prefix}_bin*.fq")
 
 
 def extract_reads(clusters_tsv: str, output_prefix: str,
                   reads1: str = "", reads2: str = "",
                   interleaved: str = "") -> List[str]:
-    """Split reads into bins; returns the list of written .fq paths."""
+    """Split reads into bins (native reader); returns the list of
+    written .fq paths."""
     if not (interleaved or (reads1 and reads2)):
         raise ValueError("reads must be specified")
-    barcode2cluster, ids = read_clusters_tsv(clusters_tsv)
-    fq_files = {cid: open(f"{output_prefix}_bin{cid}.fq", "w")
-                for cid in ids}
-    bc_files = {cid: open(f"{output_prefix}_bin{cid}.barcode", "w")
-                for cid in ids}
-    parser = BarcodeParser()
-    try:
-        if interleaved:
-            with open_maybe_gzip(interleaved) as f:
-                it = iter(f)
-                for h1 in it:
-                    s1, p1, q1 = next(it), next(it), next(it)
-                    h2, s2, p2, q2 = next(it), next(it), next(it), next(it)
-                    name, bc = parser.parse(h1.rstrip("\n").lstrip("@"))
-                    cid = barcode2cluster.get(bc)
-                    if cid is None:
-                        continue
-                    fq_files[cid].write(
-                        f"@{name}\tBX:Z:{bc}-1\n{s1}{p1}{q1}"
-                        f"{h2}{s2}{p2}{q2}")
-                    bc_files[cid].write(bc + "\n")
-        else:
-            with open_maybe_gzip(reads1) as f1, open_maybe_gzip(reads2) as f2:
-                it1, it2 = iter(f1), iter(f2)
-                for h1 in it1:
-                    s1, p1, q1 = next(it1), next(it1), next(it1)
-                    h2, s2, p2, q2 = next(it2), next(it2), next(it2), next(it2)
-                    n1, b1 = parser.parse(h1.rstrip("\n").lstrip("@"))
-                    n2, b2 = parser.parse(h2.rstrip("\n").lstrip("@"))
-                    cid = barcode2cluster.get(b1)
-                    if cid is None or n1 != n2 or b1 != b2:
-                        continue
-                    fq_files[cid].write(
-                        f"@{n1}\tBX:Z:{b1}-1\n{s1}{p1}{q1}"
-                        f"@{n2}\tBX:Z:{b2}-1\n{s2}{p2}{q2}")
-                    bc_files[cid].write(b1 + "\n")
-    finally:
-        for f in fq_files.values():
-            f.close()
-        for f in bc_files.values():
-            f.close()
+    ids = read_cluster_ids(clusters_tsv)
+    _extract_reads_native(clusters_tsv, output_prefix, reads1, reads2,
+                          interleaved)
     return [f"{output_prefix}_bin{cid}.fq" for cid in ids]
+

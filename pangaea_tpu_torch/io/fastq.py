@@ -1,6 +1,7 @@
 """FASTQ streaming + linked-read barcode extraction (readers only).
 
-Host-side input layer, copied from pangaea_tpu.io.fastq. The barcode
+Host-side input layer, copied from pangaea_tpu.io.fastq (the step-0
+barcode sort is not ported). The barcode
 parsing rules reproduce ``getBarcode`` in the reference C++ tools
 (count_kmer.cpp:23-53, count_tnf.cpp:22-52, extract_reads.cpp:9-39):
 
@@ -119,5 +120,19 @@ def iter_interleaved_pairs(path: str) -> Iterator[Tuple[FastqRecord, FastqRecord
         except StopIteration:
             log.warning("odd record count: trailing unpaired read %r dropped",
                         r1.header[:40])
+            return
+        yield r1, r2
+
+
+def iter_paired_pairs(path1: str, path2: str
+                      ) -> Iterator[Tuple[FastqRecord, FastqRecord]]:
+    """Yield (R1, R2) record pairs from two files read in lockstep; reads
+    of reads1 past the end of reads2 are dropped with a warning."""
+    it1, it2 = iter_fastq_records(path1), iter_fastq_records(path2)
+    for r1 in it1:
+        try:
+            r2 = next(it2)
+        except StopIteration:
+            log.warning("reads2 ended before reads1; trailing reads dropped")
             return
         yield r1, r2

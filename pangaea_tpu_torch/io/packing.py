@@ -1,14 +1,15 @@
 """Packing reads into fixed-shape code batches for the device kernels.
 
-Copied from pangaea_tpu.io.packing (the group packer; the interleaved
-path never quality-masks, so there is no low-quality plane). Reads become
-rows of a dense (R, L) uint8 code matrix (A=0,C=1,T=2,G=3, 4=N/pad) with
+Copied from pangaea_tpu.io.packing (the group packer and its
+quality plane). Reads become rows of a dense (R, L) uint8 code matrix (A=0,C=1,T=2,G=3, 4=N/pad) with
 
 - ``lengths``: per-row read length,
 - ``seg_ids``: per-row barcode-group index (-1 for dropped groups/padding),
 - ``cont``: 1 for continuation rows of reads longer than L, which repeat
   the previous row's last ``overlap`` bases so no k-mer window is lost or
-  double-counted (see kernels/encode.kmer_window_values).
+  double-counted (see kernels/encode.kmer_window_values),
+- ``lowq`` (quality-masked paired input only): (R, L) uint8, 1 where a
+  base's quality is below ``min_qual_char``.
 
 Because the reference scans each barcode's reads as one concatenated
 N-separated string, per-read windows are exactly equivalent: k-mers never
@@ -37,6 +38,10 @@ class PackedBatch:
     # pack time so the sort-join can trim every tail batch's pad-row
     # windows (pure sentinel sort cost) without scanning lengths
     rows_used: int = -1
+    # (R, L) uint8, nonzero where base quality < min_qual_char; present
+    # only on the quality-masked paired sort-join path (the weighted
+    # global join, kernels/features.py batch_kmer_keys_weighted)
+    lowq: Optional[np.ndarray] = None
 
     def __post_init__(self):
         if self.rows_used < 0:
@@ -65,8 +70,10 @@ def _split_ranges(n: int, max_len: int, overlap: int
 
 
 class _BatchBuilder:
-    def __init__(self, rows_per_batch: int, max_len: int):
+    def __init__(self, rows_per_batch: int, max_len: int,
+                 with_lowq: bool = False):
         self.R, self.L = rows_per_batch, max_len
+        self.with_lowq = with_lowq
         self._reset()
 
     def _reset(self):
@@ -74,9 +81,12 @@ class _BatchBuilder:
         self.lengths = np.zeros(self.R, dtype=np.int32)
         self.seg_ids = np.full(self.R, -1, dtype=np.int32)
         self.cont = np.zeros(self.R, dtype=np.uint8)
+        self.lowq = (np.zeros((self.R, self.L), dtype=np.uint8)
+                     if self.with_lowq else None)
         self.n = 0
 
-    def add_row(self, row: np.ndarray, seg: int, is_cont: int
+    def add_row(self, row: np.ndarray, seg: int, is_cont: int,
+                lowq_row: Optional[np.ndarray] = None
                 ) -> Optional[PackedBatch]:
         out = None
         if self.n == self.R:
@@ -86,6 +96,8 @@ class _BatchBuilder:
         self.lengths[i] = len(row)
         self.seg_ids[i] = seg
         self.cont[i] = is_cont
+        if self.lowq is not None and lowq_row is not None:
+            self.lowq[i, : len(lowq_row)] = lowq_row
         self.n += 1
         return out
 
@@ -93,7 +105,7 @@ class _BatchBuilder:
         if self.n == 0:
             return None
         b = PackedBatch(self.codes, self.lengths, self.seg_ids, self.cont,
-                        rows_used=self.n)
+                        rows_used=self.n, lowq=self.lowq)
         self._reset()
         return b
 
@@ -108,17 +120,24 @@ class GroupPacker:
     present in the stream), which the sort-join abundance path needs: the
     global k-mer counts must cover every read, like jellyfish over the
     whole file (src/feature.py:76-86).
+
+    With ``min_qual_char`` set, batches carry a lowq plane (quality below
+    that character) for the masked-global weighted sort-join (the
+    paired-reads path, src/feature.py:76-86); the codes themselves stay
+    UNMASKED — the group scan reads raw bases (count_kmer.cpp:87).
     """
 
     def __init__(self, min_len: int = 2000, max_read_len: int = 256,
                  overlap: int = 14, reads_per_batch: int = 65536,
-                 groups_per_chunk: int = 8192, keep_dropped: bool = False):
+                 groups_per_chunk: int = 8192, keep_dropped: bool = False,
+                 min_qual_char: Optional[str] = None):
         self.min_len = min_len
         self.max_len = max_read_len
         self.overlap = overlap
         self.rows = reads_per_batch
         self.groups_per_chunk = groups_per_chunk
         self.keep_dropped = keep_dropped
+        self.min_qual = ord(min_qual_char) if min_qual_char else None
 
     def iter_events(self, groups: Iterable[Tuple[str, List[ReadPair]]]
                     ) -> Iterator[Tuple[str, object]]:
@@ -126,7 +145,8 @@ class GroupPacker:
         and ``("chunk", names)`` to close the chunk the preceding batches
         belong to."""
         names: List[str] = []
-        bb = _BatchBuilder(self.rows, self.max_len)
+        bb = _BatchBuilder(self.rows, self.max_len,
+                           with_lowq=self.min_qual is not None)
 
         def close_chunk():
             nonlocal names
@@ -136,18 +156,26 @@ class GroupPacker:
             yield "chunk", names
             names = []
 
-        def add_read(seq: str, seg: int):
+        def add_read(seq: str, qual: str, seg: int):
             codes = encode_bases(seq.encode("ascii"))
+            lowq = None
+            if self.min_qual is not None:
+                q = np.frombuffer(qual.encode("ascii"), dtype=np.uint8)
+                lowq = np.zeros(len(codes), np.uint8)
+                m = min(len(q), len(codes))
+                lowq[:m] = q[:m] < self.min_qual
             for s, e, is_cont in _split_ranges(len(codes), self.max_len,
                                                self.overlap):
-                yield bb.add_row(codes[s:e], seg, is_cont)
+                yield bb.add_row(codes[s:e], seg, is_cont,
+                                 None if lowq is None else lowq[s:e])
 
         for barcode, group in groups:
             if not group_kept(barcode, group, self.min_len):
                 if self.keep_dropped:
                     for p in group:
-                        for seq in (p.seq1, p.seq2):
-                            for out in add_read(seq, -1):
+                        for seq, qual in ((p.seq1, p.qual1),
+                                          (p.seq2, p.qual2)):
+                            for out in add_read(seq, qual, -1):
                                 if out is not None:
                                     yield "batch", out
                 continue
@@ -156,8 +184,8 @@ class GroupPacker:
             seg = len(names)
             names.append(barcode)
             for p in group:
-                for seq in (p.seq1, p.seq2):
-                    for out in add_read(seq, seg):
+                for seq, qual in ((p.seq1, p.qual1), (p.seq2, p.qual2)):
+                    for out in add_read(seq, qual, seg):
                         if out is not None:
                             yield "batch", out
         if names or bb.n:

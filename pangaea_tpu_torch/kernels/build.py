@@ -1,13 +1,22 @@
-"""Builds the hand-written CUDA kernels under ``csrc/`` and loads them.
+"""Builds the port's native libraries at first use and loads them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into its own shared library, loaded with
-``ctypes``. Libraries are named by a hash of their source, so an edited
-kernel is rebuilt and a stale one is never loaded. They go to
-``build/kernels`` beside the package, a directory ``.gitignore`` lists.
+Two routes share one build step:
 
-Nothing is compiled at import: the first :func:`load` of a kernel builds
-its library.
+- the hand-written CUDA kernels, ``csrc/<name>.cu``, compiled by ``nvcc``
+  for ``sm_90a`` into ``build/kernels`` (:func:`load`);
+- host C++ with a plain C interface, such as the FASTQ reader
+  ``native/fastq_reader.cpp``, compiled by ``g++`` against zlib into
+  ``build/native`` (:func:`load_host`).
+
+Each source becomes its own shared library, loaded with ``ctypes``.
+Libraries are named by a hash of their source, so an edited source is
+rebuilt and a stale library is never loaded, and each is written under a
+unique temporary name and then renamed, so concurrent builders never see
+a partial file. ``build/`` sits beside the package and ``.gitignore``
+lists it. A failed build raises with the compiler's output: there is no
+fallback.
+
+Nothing is compiled at import.
 """
 
 from __future__ import annotations
@@ -17,16 +26,18 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict
+from typing import Callable, Dict, List
 
 from pangaea_tpu_torch.utils import replacing
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
-                         "kernels")
+PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PACKAGE, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(PACKAGE), "build")
+BUILD_DIR = os.path.join(BUILD_ROOT, "kernels")
+HOST_BUILD_DIR = os.path.join(BUILD_ROOT, "native")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -41,23 +52,46 @@ def _nvcc() -> str:
                        "csrc/ with the CUDA toolkit at first use")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is not None:
-        return lib
-    src = os.path.join(CSRC, name + ".cu")
+def _cxx() -> str:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the native FASTQ reader is built "
+                           "from native/fastq_reader.cpp at first use")
+    return cxx
+
+
+def _build(src: str, name: str, out_dir: str,
+           command: Callable[[str], List[str]]) -> ctypes.CDLL:
+    """Load ``lib<name>_<digest>.so`` from ``out_dir``, first running
+    ``command(tmp_path)`` to build it from ``src`` if it is missing."""
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    out = os.path.join(out_dir, f"lib{name}_{digest}.so")
+    lib = _loaded.get(out)
+    if lib is not None:
+        return lib
     if not os.path.isfile(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(out_dir, exist_ok=True)
         with replacing(out) as tmp:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+            cmd = command(tmp)
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}) for "
-                                   f"{name}:\n{' '.join(cmd)}\n"
+                raise RuntimeError(f"build of {name} failed "
+                                   f"({res.returncode}):\n{' '.join(cmd)}\n"
                                    f"{res.stdout}{res.stderr}")
-    lib = _loaded[name] = ctypes.CDLL(out)
+    lib = _loaded[out] = ctypes.CDLL(out)
     return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    src = os.path.join(CSRC, name + ".cu")
+    return _build(src, name, BUILD_DIR,
+                  lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, src])
+
+
+def load_host(src: str, name: str) -> ctypes.CDLL:
+    """The loaded library of the host C++ source ``src`` (linked with
+    zlib), built first if needed."""
+    return _build(src, name, HOST_BUILD_DIR,
+                  lambda tmp: [_cxx(), *CXX_FLAGS, src, "-o", tmp, "-lz"])

@@ -15,12 +15,25 @@ contract is the reference's per-barcode feature join
 3. bins are histogrammed per barcode group — :func:`abundance_histogram_from_bins`
    — and the canonical 4-mers likewise — :func:`tnf_histogram_segsum`.
 
+Two variants of step 2 serve the rest of step 1:
+
+- the quality-masked (weighted) join of paired input —
+  :func:`batch_kmer_keys_weighted`, :func:`sortjoin_bins_weighted`: the
+  global count is a run's weight sum, filled with the CUDA cumsum;
+- the past-the-cap spill — :func:`spill_aggregate`,
+  :func:`spill_aggregate_weighted`, :func:`map_run_bins`: each in-cap
+  chunk of windows is sorted and run-length encoded on the device, only
+  its unique (key, weight sum) runs are joined, and a per-run bin table
+  maps every window back to its bin.
+
 Where the TPU formulation worked around the TPU, the port takes the
-direct route with equal outputs: the restore of bins to stream order is
-a permutation scatter instead of a packed second sort, and the per-group
-histograms are one scatter-add over ``seg * columns + column`` (integer
-adds are exact in any order) instead of a compare-expand plus a
-cumsum/searchsorted segment sum.
+direct route with equal outputs: the restore of bins (or run ids) to
+stream order is a permutation scatter instead of a packed second sort,
+the unique runs are gathered at the run starts instead of compacted by a
+third sort, a run-bin lookup is a plain gather instead of a 128-lane row
+gather, and the per-group histograms are one scatter-add over
+``seg * columns + column`` (integer adds are exact in any order) instead
+of a compare-expand plus a cumsum/searchsorted segment sum.
 """
 
 from __future__ import annotations
@@ -28,9 +41,12 @@ from __future__ import annotations
 import torch
 
 from pangaea_tpu_torch.kernels import scan
-from pangaea_tpu_torch.kernels.encode import (canonical_kmers,
+from pangaea_tpu_torch.kernels.encode import (_window_validity,
+                                              canonical_kmers,
                                               canonical_rank_lut,
                                               kmer_window_values)
+
+_INT32_MAX = 2 ** 31 - 1
 
 
 def kmer_key_sentinel(k: int) -> int:
@@ -80,10 +96,7 @@ def sortjoin_bins(keys: torch.Tensor, *, k: int, window: int,
     multiset of bins) and the exact order of its ``sortjoin_bins``."""
     n = keys.numel()
     sk, si = torch.sort(keys, stable=True)
-    start = torch.ones(n, dtype=torch.bool, device=keys.device)
-    start[1:] = sk[1:] != sk[:-1]
-    end = torch.ones_like(start)
-    end[:-1] = start[1:]
+    start, end = _run_flags(sk)
     pos = torch.arange(n, dtype=torch.int32, device=keys.device)
     run_start = scan.cummax(torch.where(start, pos, 0))
     run_end = scan.cummin_reverse(torch.where(end, pos, n))
@@ -97,6 +110,157 @@ def sortjoin_bins(keys: torch.Tensor, *, k: int, window: int,
     out = torch.empty_like(binv)
     out[si] = binv
     return out
+
+
+def _run_flags(sk: torch.Tensor):
+    """(start, end) bool flags of the runs of equal sorted keys."""
+    start = torch.ones(sk.numel(), dtype=torch.bool, device=sk.device)
+    start[1:] = sk[1:] != sk[:-1]
+    end = torch.ones_like(start)
+    end[:-1] = start[1:]
+    return start, end
+
+
+def _run_weight_sums(sw: torch.Tensor, start: torch.Tensor,
+                     end: torch.Tensor) -> torch.Tensor:
+    """Per element, the weight sum of its run: the inclusive weight
+    cumsum at the run's end minus the exclusive one at its start, filled
+    forward (cummax) and backward (cummin_reverse) — both monotone since
+    weights are >= 0."""
+    cw = scan.cumsum(sw)
+    excl = cw - sw
+    run_before = scan.cummax(torch.where(start, excl, 0))
+    run_total = scan.cummin_reverse(torch.where(end, cw, _INT32_MAX))
+    return run_total - run_before
+
+
+# ---- quality-masked (weighted) sort-join ----------------------------------
+#
+# The paired-reads path quality-masks the GLOBAL count only: jellyfish
+# runs with --min-qual-char=? (src/feature.py:76-86, bases below '?'
+# become N before counting) while count_kmer's group scan reads raw
+# bases and just looks counts up (count_kmer.cpp:87). Masking never maps
+# one valid k-mer to another — a masked base makes the window invalid —
+# so the masked global count of key K is exactly the number of K's
+# instances whose window contains no masked base. One weighted sort
+# therefore serves both sides: every window routes its UNMASKED key,
+# carrying weight 1 iff the window survives masking; the run weight sum
+# is the jellyfish masked count, and `count > 0` reproduces the "absent
+# from the dump" skip.
+
+
+def batch_kmer_keys_weighted(codes: torch.Tensor, lowq: torch.Tensor,
+                             lengths: torch.Tensor, cont: torch.Tensor, *,
+                             k: int, overlap: int):
+    """(keys, weights) per window, both (R*W,) int32: keys as
+    :func:`batch_kmer_keys` (unmasked), weight 1 iff the window is valid
+    AFTER quality masking (no invalid and no low-quality base among its k
+    bases — jellyfish --min-qual-char semantics). ``lowq``: (R, L)
+    nonzero where quality < min_qual_char."""
+    skip = cont.to(torch.int32) * max(0, overlap - (k - 1))
+    vals, valid = kmer_window_values(codes, lengths, k, win_skip=skip)
+    canon = canonical_kmers(vals, k)
+    keys = torch.where(valid, canon, torch.full_like(canon,
+                                                     kmer_key_sentinel(k)))
+    c = codes.to(torch.int32)
+    masked = torch.where(lowq != 0, torch.full_like(c, 4), c)
+    wvalid = _window_validity(masked, lengths, k, keys.shape[1], skip)
+    return keys.reshape(-1), wvalid.to(torch.int32).reshape(-1)
+
+
+def sortjoin_bins_weighted(keys: torch.Tensor, weights: torch.Tensor, *,
+                           k: int, window: int, vector_size: int
+                           ) -> torch.Tensor:
+    """Masked-global sort-join: per-window abundance bin in original
+    order where the global count is the window's run WEIGHT SUM; -1 for
+    invalid windows, keys absent from the masked global multiset (count
+    0), or bin >= vector_size. keys, weights: (N,) int32, padding entries
+    the sentinel with weight 0. Runs the three CUDA scans: the weight
+    cumsum and its two run-boundary fills."""
+    sk, si = torch.sort(keys, stable=True)
+    sw = weights[si]
+    start, end = _run_flags(sk)
+    count = _run_weight_sums(sw, start, end)
+    del sw, start, end
+    bins = torch.div(count, window, rounding_mode="floor")
+    ok = (sk < kmer_key_sentinel(k)) & (count > 0) & (bins < vector_size)
+    binv = torch.where(ok, bins, -1)
+    del sk, count, bins, ok
+    out = torch.empty_like(binv)
+    out[si] = binv
+    return out
+
+
+# ---- spill pre-aggregation (past-the-cap streaming) -----------------------
+#
+# Past the device window cap, phase-A windows cannot all stay on the
+# device. Genomic k-mer multiplicities are Zipfian, so each in-cap chunk
+# of windows is aggregated ON THE DEVICE first:
+#
+#   1. sort the chunk's windows by key;
+#   2. run-length encode: run starts, per-run weight sum (the run length
+#      on the unmasked path; the quality-masked paired path sums its 0/1
+#      window weights);
+#   3. scatter each window's RUN ID back to stream order — the only
+#      per-window artifact, an int32 that can stay on the device, or go
+#      to host RAM or disk;
+#   4. gather the unique (key, weight sum) runs at the run starts, in
+#      sorted-key order (valid runs first, the sentinel run last).
+#
+# Phase B joins the unique entries of all chunks through the weighted
+# sort-join (exact: equal keys' weight sums add), and phase C maps run
+# ids to bins with one gather per chunk (:func:`map_run_bins`).
+
+
+def _spill_aggregate(keys: torch.Tensor, weights, k: int):
+    n = keys.numel()
+    sk, si = torch.sort(keys, stable=True)
+    start, end = _run_flags(sk)
+    if weights is None:
+        pos = torch.arange(n, dtype=torch.int32, device=keys.device)
+        run_start = scan.cummax(torch.where(start, pos, 0))
+        run_end = scan.cummin_reverse(torch.where(end, pos, n))
+        wsum = run_end - run_start + 1
+        del pos, run_start, run_end
+    else:
+        wsum = _run_weight_sums(weights[si], start, end)
+    run_id = scan.cumsum(start.to(torch.int32)) - 1
+    run_ids_stream = torch.empty_like(run_id)
+    run_ids_stream[si] = run_id
+    del run_id, si
+    starts = torch.nonzero(start).squeeze(1)
+    uniq = sk[starts]
+    uniq_w = wsum[starts]
+    n_runs = starts.numel()
+    n_valid = int((uniq < kmer_key_sentinel(k)).sum())
+    return run_ids_stream, uniq, uniq_w, n_runs, n_valid
+
+
+def spill_aggregate(keys: torch.Tensor, *, k: int):
+    """Single-word unmasked chunk aggregation (see the note above):
+    (run_ids_stream, unique_keys, unique_weight_sums, n_runs, n_valid).
+
+    ``run_ids_stream`` (N,) int32 is each window's run id in stream
+    order; the unique arrays hold the n_runs runs in sorted-key order,
+    the first n_valid of them real k-mers, the rest the sentinel run of
+    invalid windows (at most one). n_runs and n_valid are host ints."""
+    return _spill_aggregate(keys, None, k)
+
+
+def spill_aggregate_weighted(keys: torch.Tensor, weights: torch.Tensor, *,
+                             k: int):
+    """Single-word quality-masked chunk aggregation: as
+    :func:`spill_aggregate`, with run weight sums of the 0/1 window
+    weights."""
+    return _spill_aggregate(keys, weights, k)
+
+
+def map_run_bins(table: torch.Tensor, run_ids: torch.Tensor) -> torch.Tensor:
+    """Per-window bins from a per-run bin table (phase C of the
+    aggregated spill): ``table[run_ids]``. The table holds -1 for the
+    sentinel run and for runs whose k-mer gets no bin, so pad and invalid
+    windows come back -1 exactly like :func:`sortjoin_bins`."""
+    return torch.index_select(table, 0, run_ids)
 
 
 def abundance_histogram_from_bins(hist: torch.Tensor, bins: torch.Tensor,

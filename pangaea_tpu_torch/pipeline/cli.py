@@ -5,8 +5,9 @@ Usage: ``python -m pangaea_tpu_torch.pipeline.cli -i reads.fq.gz -o out -c 30``
 The flags are pangaea_tpu's (pipeline/cli.py:17-71) plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain PyTorch versions). Flags of
 paths this port does not run yet are accepted by the parser and rejected
-with an error: step 4 and its inputs, the past-the-cap spill, bfloat16
-matmuls, and pangaea_tpu's host routing of small clustering fits.
+with an error: step 4 and its inputs, bfloat16 matmuls, and
+pangaea_tpu's host routing of small clustering fits. k > 15 is rejected
+by step 1 itself.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ from pangaea_tpu_torch.config import (AssemblyConfig, ClusterConfig,
 
 # (dest, value the port can honour) of the flags it cannot honour yet
 _UNPORTED = (
-    ("spill_store", "auto"), ("spill_dir", None),
     ("matmul_dtype", "float32"),
     ("cluster_device_min_elems", None),
     ("metaphlan_db", ""), ("spades", ""), ("local_assembly", ""),
@@ -32,9 +32,9 @@ _UNPORTED = (
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pangaea_tpu_torch")
     p.add_argument("-1", "--reads1", default="",
-                   help="path to reads1 file (linked-reads; not ported yet)")
+                   help="path to reads1 file (linked-reads)")
     p.add_argument("-2", "--reads2", default="",
-                   help="path to reads2 file (linked-reads; not ported yet)")
+                   help="path to reads2 file (linked-reads)")
     p.add_argument("-i", "--interleaved_reads", default="",
                    help="path to interleaved reads file")
     p.add_argument("-o", "--output", required=True, help="output directory")
@@ -67,9 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported: step 3 runs on --device")
     p.add_argument("--spill_store",
                    choices=("auto", "device", "host", "disk"),
-                   default="auto", help="not ported (past-the-cap spill)")
+                   default="auto",
+                   help="where past-the-cap spill run ids live "
+                        "(FeatureConfig.spill_store)")
     p.add_argument("--spill_dir", default=None,
-                   help="not ported (past-the-cap spill)")
+                   help="directory for disk-backed spill files (flat host "
+                        "RSS; implies spill_store=disk under 'auto')")
     p.add_argument("-m", "--metaphlan_db", type=str, default="")
     p.add_argument("-t", "--threads", type=int, default=0)
     p.add_argument("-sp", "--spades", type=str, default="")
@@ -89,8 +92,6 @@ def check_supported(p: argparse.ArgumentParser,
             p.error(f"--{dest} is not supported by the PyTorch port yet")
     if "4" in args.steps.split(","):
         p.error("step 4 (assembly) is not ported yet: use -st 1,2,3")
-    if args.reads1 or args.reads2:
-        p.error("paired -1/-2 input is not ported yet: use -i")
     if args.clusters is None and "3" in args.steps.split(","):
         p.error("-c/--clusters is required (the automatic count is not "
                 "ported yet)")
@@ -107,7 +108,8 @@ def config_from_args(args: argparse.Namespace) -> PangaeaConfig:
         feature=FeatureConfig(
             kmer=args.kmer, tnf_kmer=args.tnf_kmer,
             window_size=args.window_size, vector_size=args.vector_size,
-            min_length=args.min_length),
+            min_length=args.min_length, spill_store=args.spill_store,
+            spill_dir=args.spill_dir),
         model=ModelConfig(
             latent_dim=args.latent_dim, lr=args.lr,
             weight_decay=args.weight_decay, epochs=args.epochs,

@@ -143,3 +143,50 @@ def test_sortjoin_bins_on_card_equals_cpu(cuda):
     want = sortjoin_bins(keys, k=4, window=3, vector_size=50)
     got = sortjoin_bins(keys.to(cuda), k=4, window=3, vector_size=50)
     assert torch.equal(got.cpu(), want)
+
+
+def _weighted_keys(n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    keys = torch.randint(0, 5000, (n,), generator=gen, dtype=torch.int32)
+    keys[torch.rand(n, generator=gen) < 0.1] = 4 ** 7
+    w = (torch.rand(n, generator=gen) < 0.7).to(torch.int32)
+    w[keys == 4 ** 7] = 0
+    return keys, w
+
+
+@pytest.mark.parametrize("n", [1 << 16, (1 << 20) + 12345])
+def test_sortjoin_bins_weighted_on_card_equals_cpu(cuda, n):
+    """The weighted join runs all three scans on the card; its bins equal
+    the plain run's."""
+    from pangaea_tpu_torch.kernels.features import sortjoin_bins_weighted
+    keys, w = _weighted_keys(n, n)
+    want = sortjoin_bins_weighted(keys, w, k=7, window=2, vector_size=60)
+    before = [fn.launches for fn in scan.WRAPPERS]
+    got = sortjoin_bins_weighted(keys.to(cuda), w.to(cuda), k=7, window=2,
+                                 vector_size=60)
+    assert [fn.launches - b for fn, b in zip(scan.WRAPPERS, before)] == \
+        [1, 1, 1]
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_spill_aggregate_on_card_equals_cpu(cuda, weighted):
+    from pangaea_tpu_torch.kernels import features as kf
+    keys, w = _weighted_keys((1 << 20) + 77, 3)
+    if weighted:
+        want = kf.spill_aggregate_weighted(keys, w, k=7)
+        before = scan.cumsum.launches
+        got = kf.spill_aggregate_weighted(keys.to(cuda), w.to(cuda), k=7)
+        assert scan.cumsum.launches == before + 2
+    else:
+        want = kf.spill_aggregate(keys, k=7)
+        before = scan.cumsum.launches
+        got = kf.spill_aggregate(keys.to(cuda), k=7)
+        assert scan.cumsum.launches == before + 1
+    ids, uniq, uw, n_runs, n_valid = got
+    assert (n_runs, n_valid) == want[3:]
+    for a, b in zip((ids, uniq, uw), want[:3]):
+        assert torch.equal(a.cpu(), b)
+    table = torch.randint(-1, 40, (n_runs,), dtype=torch.int32)
+    assert torch.equal(kf.map_run_bins(table.to(cuda), ids).cpu(),
+                       kf.map_run_bins(table, want[0]))

@@ -213,14 +213,19 @@ def test_csv_writer_matches_pandas_bytes(tmp_path):
 
 
 def test_unported_inputs_raise(sims, tmp_path):
-    fe = FeatureExtractor(FeatureConfig(kmer=17), str(tmp_path / "a"),
+    """k > 15 and the table/segsum paths are not ported: they raise (paired
+    input and the past-the-cap spill run, tests/test_torch_masked.py and
+    tests/test_torch_spill.py)."""
+    fe = FeatureExtractor(FeatureConfig(kmer=16), str(tmp_path / "a"),
                           device="cpu")
     with pytest.raises(NotImplementedError):
         fe.extract_features(interleaved=sims["clean"])
-    fe = FeatureExtractor(FeatureConfig(), str(tmp_path / "b"), device="cpu")
+    fe = FeatureExtractor(FeatureConfig(hist_impl="scatter"),
+                          str(tmp_path / "b"), device="cpu")
     with pytest.raises(NotImplementedError):
         fe.extract_features(reads1=sims["clean"], reads2=sims["clean"])
-    fe = FeatureExtractor(FeatureConfig(sortjoin_max_windows=1000),
+    fe = FeatureExtractor(FeatureConfig(hist_impl="segsum"),
                           str(tmp_path / "c"), device="cpu")
     with pytest.raises(NotImplementedError):
         fe.extract_features(interleaved=sims["clean"])
+    assert not os.listdir(str(tmp_path / "a"))

@@ -121,6 +121,11 @@ def test_unported_requests_raise(tmp_path, sim):  # noqa: F811
     cfg = _port_config(reads, str(tmp_path / "a")).replace(steps="1,2,3,4")
     with pytest.raises(NotImplementedError):
         Pipeline(cfg, device="cpu").run()
+    cfg = _port_config(reads, str(tmp_path / "k")).replace(steps="1")
+    cfg.feature.kmer = 16
+    with pytest.raises(NotImplementedError):
+        Pipeline(cfg, device="cpu").run()
+    assert not check_step_finished(cfg.output, "1")
     cfg = _port_config(reads, str(tmp_path / "b")).replace(steps="3")
     cfg.cluster.n_clusters = None
     os.makedirs(os.path.join(cfg.output, "2.vae"))
@@ -140,10 +145,10 @@ def test_default_device_is_the_card():
 
 @pytest.mark.parametrize("argv", [
     ["-st", "1,2,3,4", "-c", "4"],
-    ["-c", "4", "--spill_store", "host"],
+    ["-c", "4", "-sp", "seeds.fa"],       # step-4 inputs
     ["-c", "4", "--matmul_dtype", "bfloat16"],
     ["-c", "4", "--cluster_device_min_elems", "10"],
-    ["-c", "4", "-1", "a.fq", "-2", "b.fq"],
+    ["-c", "4", "-lt", "5,20"],
     [],  # no -c: the automatic count is not ported
 ])
 def test_cli_rejects_unported_flags(argv, tmp_path):
@@ -161,6 +166,14 @@ def test_cli_builds_config():
     assert (cfg.cluster.n_clusters, cfg.model.epochs, cfg.feature.kmer) == \
         (7, 3, 13)
     assert args.device == "cpu"
+    # paired input and the spill flags are honoured
+    args = p.parse_args(["-1", "a.fq", "-2", "b.fq", "-o", "o", "-c", "4",
+                         "--spill_store", "disk", "--spill_dir", "sp"])
+    cli.check_supported(p, args)
+    cfg = cli.config_from_args(args)
+    assert (cfg.reads1, cfg.reads2, cfg.interleaved_reads) == \
+        ("a.fq", "b.fq", "")
+    assert (cfg.feature.spill_store, cfg.feature.spill_dir) == ("disk", "sp")
 
 
 def test_port_imports_no_jax_and_no_pangaea_tpu():
@@ -169,6 +182,8 @@ def test_port_imports_no_jax_and_no_pangaea_tpu():
         "import pangaea_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'pangaea_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('native', 'io.fast_packing', 'features'):\n"
+        "    assert 'pangaea_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pangaea_tpu' or m.startswith('pangaea_tpu.')]\n"
         "print(len([m for m in sys.modules\n"
@@ -177,4 +192,4 @@ def test_port_imports_no_jax_and_no_pangaea_tpu():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) > 20
+    assert int(r.stdout.split()[0]) > 25
