@@ -44,12 +44,26 @@ Phases, each fatal on failure:
               weighted join (every scan must launch, ARI >= 0.5); then
               step 1 again with the 2^25 cap, the weighted aggregated
               spill, byte-equal to the in-cap paired run.
+7. assembly — step 4 on cuda (steps="4") on phase 3's directory: the
+              builtin bin assembler, the k-mer vote mapper (its run-length
+              scan is the CUDA cummax, which must launch), low-abundance
+              recovery, reassembly, merge and circularization. Logs each
+              tool's backend and fails if an external tool ran; final_asm.fa
+              must hold >= 8 contigs and >= 800,000 bases (half of 8 x 200
+              kb); prints contigs, bases, N50, the mapped base share, the
+              low-abundance pairs per cutoff and the sub-stage seconds.
+              Then KmerMapper on cuda and on cpu over the binned contigs:
+              tables bit-equal, and the votes of the first 65,536 read
+              pairs bit-equal; and merge_olc's builtin containment filter
+              (binned contigs as seeds, the step's pool as local contigs)
+              byte-equal on cuda and cpu.
 
 Every path's launch counts are zeroed just before it and read just
 after it. After the phases, cummax and cummin_reverse are timed at the
-main path's scan length and cumsum at the paired path's; cumsum is also
-timed at 2^28 in phase 2. Every time is the median CUDA-event time of
-one call. A JSON line gives copy_ms, the time of one device-to-device
+main path's scan length, cumsum at the paired path's, and cummax again
+at the mapper's flat (65,536 x 244) length on a real run-boundary array,
+beside torch.cummax along its rows; cumsum is also timed at 2^28 in
+phase 2. Every time is the median CUDA-event time of one call. A JSON line gives copy_ms, the time of one device-to-device
 copy of the same int32 bytes at each measured length (the
 achievable-bandwidth yardstick beside the bound). The line before the
 last is one JSON object with every kernel (name, route, source, the TPU
@@ -600,6 +614,189 @@ def phase_paired(r1: str, r2: str, truth: dict) -> dict:
     return run
 
 
+# ---- phase 7 -------------------------------------------------------------
+
+# half of 8 x 200 kb: the ratio of pangaea_tpu's tests/test_pipeline.py gate
+ASM_MIN_CONTIGS, ASM_MIN_BASES = 8, 800_000
+MAP_PAIRS = 65_536        # read pairs mapped on the card and on the CPU
+MAP_BATCH_PAIRS = 32_768  # map_pairs_to_bam's batch: 65,536 rows per call
+
+
+def n50(lengths) -> int:
+    acc, half = 0, sum(lengths) / 2
+    for n in sorted(lengths, reverse=True):
+        acc += n
+        if acc >= half:
+            return n
+    return 0
+
+
+def check_builtin(what: str, backend: dict) -> None:
+    """Log each tool's backend; the card's machine has none of the
+    external tools, so anything but the builtin (or a skip) is a fault."""
+    log(f"{what}: backends {json.dumps(backend, sort_keys=True)}")
+    external = {k: v for k, v in backend.items()
+                if not v.startswith(("builtin", "skipped"))}
+    if external:
+        raise AssertionError(f"{what}: external tools ran where the builtin "
+                             f"was expected: {external}")
+
+
+def mapper_pairs(fq: str, n: int) -> list:
+    import itertools
+    from pangaea_tpu_torch.io.grouping import iter_read_pairs_interleaved
+    return [(p.seq1, p.seq2) for p in
+            itertools.islice(iter_read_pairs_interleaved(fq), n)]
+
+
+def check_mapper_devices(contigs_fa: str, fq: str) -> dict:
+    """KmerMapper on cuda and on cpu over the binned contigs: the index
+    tables bit-equal, then (best, votes, nvalid) of the first MAP_PAIRS
+    read pairs, mapped in the path's batches, bit-equal. Returns the
+    first batch's run-boundary array (the cummax input) on the card."""
+    import numpy as np
+    import torch
+    from pangaea_tpu_torch.asm.fasta import iter_fasta
+    from pangaea_tpu_torch.asm.mapper import (KmerMapper, run_boundaries,
+                                              sorted_row_ids)
+    contigs = list(iter_fasta(contigs_fa))
+    maps = {}
+    for dev in ("cuda", "cpu"):
+        m = KmerMapper(device=dev)
+        m.index_contigs(contigs)
+        maps[dev] = m
+    if not torch.equal(maps["cuda"].table.cpu(), maps["cpu"].table):
+        raise AssertionError("assembly: the card's k-mer table differs from "
+                             "the CPU's")
+    pairs = mapper_pairs(fq, MAP_PAIRS)
+    boundary = None
+    for lo in range(0, len(pairs), MAP_BATCH_PAIRS):
+        seqs = [s for p in pairs[lo:lo + MAP_BATCH_PAIRS] for s in p]
+        got = maps["cuda"].map_reads(seqs)
+        want = maps["cpu"].map_reads(seqs)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"assembly: the card's votes differ from "
+                                 f"the CPU's in pairs {lo}..")
+        if boundary is None:
+            m = maps["cuda"]
+            s, _ = sorted_row_ids(m.table, *m.encode_reads(seqs), k=m.k)
+            boundary = run_boundaries(s)[1]
+    log(f"assembly: KmerMapper table ({4 ** maps['cpu'].k} entries, "
+        f"{len(contigs)} contigs) and the votes of {len(pairs)} read pairs "
+        f"bit-equal on cuda and cpu")
+    del maps
+    torch.cuda.empty_cache()
+    return boundary
+
+
+def check_containment_devices(contigs_fa: str, pool_fa: str) -> None:
+    """merge_olc's builtin containment filter (1,024-wide mapper rows),
+    binned contigs as seeds and the step's pool as local contigs, on cuda
+    and on cpu: byte-equal outputs."""
+    from pangaea_tpu_torch.asm.merge_olc import merge_olc
+    outs, t = {}, {}
+    for dev in ("cuda", "cpu"):
+        d = os.path.join(smoke_dir(), f"containment_{dev}")
+        shutil.rmtree(d, ignore_errors=True)
+        stats = {}
+        t0 = time.perf_counter()
+        final = merge_olc(contigs_fa, pool_fa, d, device=dev, stats=stats)
+        t[dev] = time.perf_counter() - t0
+        check_builtin(f"containment ({dev})", stats["backend"])
+        with open(final, "rb") as f, open(os.path.join(
+                d, "pre-flye-input-contigs.filt.fa"), "rb") as g:
+            outs[dev] = (f.read(), g.read())
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError("assembly: merge_olc's containment filter "
+                             "differs between cuda and cpu")
+    kept = outs["cuda"][1].count(b">")
+    with open(pool_fa, "rb") as f:
+        pooled = f.read().count(b">")
+    log(f"assembly: merge_olc builtin containment byte-equal on cuda and "
+        f"cpu ({t['cuda']:.3f} / {t['cpu']:.3f} s): {kept} of {pooled} "
+        f"pooled contigs kept")
+
+
+def phase_assembly(run: dict, fq: str, truth: dict) -> dict:
+    """Step 4 on cuda on phase 3's directory, then the mapper and the
+    containment filter held against the CPU."""
+    import torch
+    from collections import Counter
+    from pangaea_tpu_torch.asm.fasta import iter_fasta
+    from pangaea_tpu_torch.config import ClusterConfig, PangaeaConfig
+    from pangaea_tpu_torch.kernels import scan
+    from pangaea_tpu_torch.pipeline import Pipeline, check_step_finished
+    out = run["out"]
+    cfg = PangaeaConfig(interleaved_reads=fq, output=out, steps="4",
+                        cluster=ClusterConfig(n_clusters=N_CLUSTERS))
+    species = Counter(truth.values())
+    reads_per_bc = 2 * SIM["pairs_per_barcode"]
+    log("assembly: simulated reads per species "
+        + json.dumps({s: n * reads_per_bc for s, n in sorted(species.items())}))
+    pipe = Pipeline(cfg, device="cuda")
+    scan.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    stats = pipe.assembly_stats
+    check_builtin("assembly", stats["backend"])
+    if not check_step_finished(out, "4"):
+        raise AssertionError("assembly: step 4 left no marker")
+    check_launched("assembly", launches, ("cummax",))
+    lengths = [len(s) for _, s in iter_fasta(os.path.join(out,
+                                                          "final_asm.fa"))]
+    share = stats["mapped_bases"] / max(stats["read_bases"], 1)
+    secs = {k: round(v, 3) for k, v in stats.items() if k.endswith("_s")}
+    log(f"assembly: step 4 on cuda in {wall:.3f} s; sub-stages {secs}")
+    log(f"assembly: final_asm.fa {len(lengths)} contigs, {sum(lengths)} "
+        f"bases, N50 {n50(lengths)}; {stats['read_pairs']} read pairs "
+        f"mapped back, mapped base share {share:.6f}; low-abundance pairs "
+        f"per cutoff {stats['low_abd_pairs']}; scan launches {launches}")
+    if len(lengths) < ASM_MIN_CONTIGS or sum(lengths) < ASM_MIN_BASES:
+        raise AssertionError(f"assembly: {len(lengths)} contigs, "
+                             f"{sum(lengths)} bases; the gate is "
+                             f"{ASM_MIN_CONTIGS} and {ASM_MIN_BASES}")
+    contigs_fa = os.path.join(out, "3.clustering", "contigs.megahit.fa")
+    boundary = check_mapper_devices(contigs_fa, fq)
+    check_containment_devices(contigs_fa, os.path.join(
+        out, "4.assembly", "contigs.low_abd.binning.local.fa"))
+    return {"wall_s": wall, "launches": launches, "stats": stats,
+            "boundary": boundary}
+
+
+def mapper_cummax_record(boundary, launches: int) -> dict:
+    """cummax at the mapper's flat length: kernel vs plain version on the
+    run-boundary array of a real map batch, beside torch.cummax along the
+    rows of its (R, W) view (which computes the same function there:
+    every row opens with its own global index)."""
+    import torch
+    from pangaea_tpu_torch.kernels import scan
+    R, W = boundary.shape
+    x = boundary.reshape(-1).contiguous()
+    got = scan.cummax(x)
+    want = scan.cummax_plain(x)
+    lib = torch.cummax(boundary, dim=1).values.reshape(-1)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err != 0 or not torch.equal(lib, want):
+        raise AssertionError(f"cummax at the mapper's ({R}, {W}): kernel "
+                             f"or torch.cummax(dim=1) != plain (err {err})")
+    del got, want, lib
+    r = {"n": R * W, "max_abs_err": err,
+         "ms": time_ms(lambda: scan.cummax(x)),
+         "plain_ms": time_ms(lambda: scan.cummax_plain(x)),
+         "library_ms": time_ms(lambda: torch.cummax(boundary, dim=1))}
+    r["bound_ms"], r["bound_by"] = scan_bound_ms(R * W)
+    log_measure(f"cummax (mapper rows {R} x {W})", r)
+    return {"name": "cummax", "route": "cuda",
+            "source": "pangaea_tpu_torch/csrc/scan.cu",
+            "replaces": KERNELS[0][2], "launches": launches,
+            "launches_by_path": {"assembly": launches}, **r}
+
+
 def kernel_records(lengths: dict, by_path: dict) -> list:
     """The JSON record of every kernel, timed at ``lengths[name]``;
     launches summed over the driven paths, and per path."""
@@ -662,16 +859,21 @@ def main() -> int:
     (r1, r2), ptruth = phase("simulate_paired", sim_data, "data_paired",
                              PAIRED_SIM, True)
     paired = phase("paired", phase_paired, r1, r2, ptruth)
+    asm = phase("assembly", phase_assembly, run, fq, truth)
     by_path = {"pipeline": run["launches"],
                **{k: v["launches"] for k, v in spills.items()},
                "paired": paired["launches"],
-               "paired-spill-agg": paired["spill"]["launches"]}
+               "paired-spill-agg": paired["spill"]["launches"],
+               "assembly": asm["launches"]}
     n_main = run["stats"]["sorted_windows"]
     n_paired = paired["stats"]["sorted_windows"]
+    n_map = asm["boundary"].numel()
     records = phase("timing", kernel_records,
                     {"cummax": n_main, "cummin_reverse": n_main,
                      "cumsum": n_paired}, by_path)
-    copies = {str(n): copy_ms(n) for n in sorted({n_main, n_paired,
+    records.append(mapper_cummax_record(asm.pop("boundary"),
+                                        asm["launches"]["cummax"]))
+    copies = {str(n): copy_ms(n) for n in sorted({n_main, n_paired, n_map,
                                                   SCAN_CAP})}
     torch.cuda.empty_cache()
     log(f"total {time.perf_counter() - t_start:.1f} s; phases "

@@ -1,8 +1,8 @@
 """pangaea_tpu_torch — the PyTorch/CUDA port of pangaea_tpu.
 
-The same pipeline steps 1-3 (barcode features -> VAE latent -> RPH-KMeans
-clusters and per-bin reads) with the same artifacts and resume markers,
-written for one NVIDIA H100. Plain tensor work is PyTorch; every kernel
+The same pipeline steps 1-4 (barcode features -> VAE latent -> RPH-KMeans
+clusters and per-bin reads -> assembly ensemble and final_asm.fa) with the
+same artifacts and resume markers, written for one NVIDIA H100. Plain tensor work is PyTorch; every kernel
 that pangaea_tpu wrote in Pallas for the TPU is a hand-written CUDA
 kernel under ``csrc/`` (built with nvcc at first use).
 

@@ -125,8 +125,11 @@ class ClusterConfig:
 
 @dataclass
 class AssemblyConfig:
-    """Step-4 knobs (reference: src/pangaea.py:163-164, clustering.py:132-164).
-    Step 4 is not ported yet; kept so configurations stay interchangeable."""
+    """Step-4 knobs (reference: src/pangaea.py:163-164, clustering.py:132-164),
+    read by asm/final.py and asm/circularize.py. ``max_concurrent_bins``,
+    ``seed_min_len``, ``seed_copies``, ``containment_slack`` and
+    ``flye_min_overlap`` are not read (as in pangaea_tpu: the modules
+    use their reference defaults)."""
 
     low_abd_cut: str = "10,30"
     low_assembler: str = "megahit"    # or "spades"

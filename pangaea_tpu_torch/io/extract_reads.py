@@ -53,7 +53,8 @@ def _extract_reads_native(clusters_tsv: str, output_prefix: str,
                                    reads1.encode(), reads2.encode(), 0)
     if rc < 0:
         raise OSError(f"native extract_reads failed for {clusters_tsv} "
-                      f"-> {output_prefix}_bin*.fq")
+                      f"-> {output_prefix}_bin*.fq (an unwritable output, "
+                      f"or a missing, truncated or corrupt input)")
 
 
 def extract_reads(clusters_tsv: str, output_prefix: str,

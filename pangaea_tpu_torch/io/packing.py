@@ -69,6 +69,13 @@ def _split_ranges(n: int, max_len: int, overlap: int
     return ranges
 
 
+def _split_rows(codes: np.ndarray, max_len: int, overlap: int
+                ) -> List[Tuple[np.ndarray, int]]:
+    """Split an encoded read into (row_codes, is_continuation) rows."""
+    return [(codes[s:e], c)
+            for s, e, c in _split_ranges(len(codes), max_len, overlap)]
+
+
 class _BatchBuilder:
     def __init__(self, rows_per_batch: int, max_len: int,
                  with_lowq: bool = False):

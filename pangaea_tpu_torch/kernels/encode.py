@@ -12,8 +12,8 @@ count_kmer.cpp / count_tnf.cpp):
 - canonical k-mer = min(value, revcomp(value)) (count_kmer.cpp:86).
 
 Device functions take and return torch tensors on any device; the host
-helpers (``encode_bases``, ``canonical_order``, ``canonical_rank_lut``,
-``num_canonical_kmers``) are numpy. k > 15 (int64 keys) is queued in
+helpers (``encode_bases``, ``kmer_positions_np``, ``canonical_order``,
+``canonical_rank_lut``, ``num_canonical_kmers``) are numpy. k > 15 (int64 keys) is queued in
 ROADMAP.md.
 """
 
@@ -142,6 +142,26 @@ def _window_validity(c: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
     if win_skip is not None:
         valid &= starts >= win_skip[:, None].to(torch.int32)
     return valid
+
+
+def kmer_positions_np(seq, k: int):
+    """Host-side (values, positions) of every N-free k-mer window of one
+    ASCII sequence, 2-bit packed into uint64 (k <= 31); the assembly
+    layer's anchor aligner indexes with it (asm/circular_logic.py)."""
+    if isinstance(seq, str):
+        seq = seq.encode("ascii")
+    codes = encode_bases(seq)
+    n = len(codes)
+    if n < k:
+        return (np.empty(0, np.uint64), np.empty(0, np.int64))
+    W = n - k + 1
+    acc = np.zeros(W, np.uint64)
+    nbad = np.cumsum(codes >= 4)
+    for j in range(k):
+        acc = (acc << np.uint64(2)) | codes[j:j + W].astype(np.uint64)
+    ok = (nbad[k - 1:] - np.concatenate([[0], nbad[:W - 1]])) == 0
+    pos = np.flatnonzero(ok)
+    return acc[pos], pos
 
 
 @functools.lru_cache(maxsize=None)

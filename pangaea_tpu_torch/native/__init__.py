@@ -1,13 +1,20 @@
 """The native FASTQ reader: C++ gzip streaming, FASTQ parsing, barcode
 extraction and 2-bit encoding in bulk, bound with ctypes.
 
-``fastq_reader.cpp`` is a verbatim copy of pangaea_tpu's native reader.
+``fastq_reader.cpp`` is a copy of pangaea_tpu's native reader with one
+repair: a gzip input that is truncated (it ends inside a member) or
+corrupt (a bad deflate block, header, CRC or length) is an error, where
+pangaea_tpu's copy reads it as a short file. :meth:`NativeFastqReader.read`
+raises ``EOFError`` for the first and :class:`CorruptGzipError` (an
+``OSError``) for the second, as Python's ``gzip`` does; concatenated
+members (BGZF) and zero padding after a member still read.
+
 It is built with g++ (against zlib) at first use into ``build/native``
 through :func:`pangaea_tpu_torch.kernels.build.load_host`; a failed build
 raises with the compiler's output. Bound here: ``pgn_open``,
-``pgn_close``, ``pgn_read``, ``pgn_read_lq`` and ``pgn_extract_reads``.
-The library's step-0 barcode-sort entry points (``pgn_sort_*``) are not
-bound: the port has no step 0 yet.
+``pgn_close``, ``pgn_read``, ``pgn_read_lq``, ``pgn_error`` and
+``pgn_extract_reads``. The library's step-0 barcode-sort entry points
+(``pgn_sort_*``) are not bound: the port has no step 0 yet.
 """
 
 from __future__ import annotations
@@ -44,11 +51,20 @@ def get_lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p]
+    lib.pgn_error.restype = ctypes.c_int
+    lib.pgn_error.argtypes = [ctypes.c_void_p]
     lib.pgn_extract_reads.restype = ctypes.c_longlong
     lib.pgn_extract_reads.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
                                       ctypes.c_char_p, ctypes.c_char_p,
                                       ctypes.c_int]
     return lib
+
+
+class CorruptGzipError(OSError):
+    """A gzip input with a bad deflate block, header, CRC or length."""
+
+
+_ERR_TRUNCATED = 1  # pgn_error(); 2 is a corrupt stream
 
 
 class NativeFastqReader:
@@ -69,13 +85,16 @@ class NativeFastqReader:
         self.bc_w = barcode_width
         self.nm_w = name_width
         self.with_lowq = with_lowq
+        self.path = path
         mq = ord(min_qual_char) if min_qual_char else 0
         self._h = self._lib.pgn_open(path.encode(), mq)
         if not self._h:
             raise FileNotFoundError(path)
 
     def read(self, n: int) -> Optional[Tuple[np.ndarray, ...]]:
-        """Up to ``n`` records, or None at the end of the file."""
+        """Up to ``n`` records, or None at the end of the file. Raises
+        ``EOFError`` when a gzip input ends inside a member and
+        :class:`CorruptGzipError` when its data is corrupt."""
         if not self._h:
             raise ValueError("read from a closed NativeFastqReader")
         codes = np.empty((n, self.max_len), np.uint8)
@@ -97,6 +116,11 @@ class NativeFastqReader:
                 self._h, n, self.max_len,
                 codes.ctypes.data, lengths.ctypes.data,
                 barcodes.ctypes.data, self.bc_w, names_ptr, self.nm_w)
+        if got < 0:
+            if self._lib.pgn_error(self._h) == _ERR_TRUNCATED:
+                raise EOFError(f"{self.path}: compressed file ended before "
+                               "the end-of-stream marker was reached")
+            raise CorruptGzipError(f"{self.path}: corrupt gzip stream")
         if got == 0:
             return None
         out = (codes[:got], lengths[:got],

@@ -33,6 +33,10 @@ namespace {
 
 constexpr int kBufSize = 1 << 20;
 
+// Stream errors, sticky on the Reader and reported by pgn_error().
+constexpr int kErrTruncated = 1;  // input ended inside a gzip member
+constexpr int kErrCorrupt = 2;    // bad deflate data, header or trailer
+
 // Raw z_stream inflate (~256 MB/s on this host) instead of gzread
 // (~50 MB/s: its internal windowing copies dominate).
 struct Reader {
@@ -45,9 +49,21 @@ struct Reader {
     int buf_pos = 0;
     bool eof = false;
     bool in_eof = false;
+    // bytes of the current gzip member were consumed and its end
+    // (Z_STREAM_END, trailer checked) has not been reached yet
+    bool member_open = false;
+    int error = 0;      // 0, kErrTruncated or kErrCorrupt
     int read_type = 0;  // 0 unknown, 1 = 10x, 2 = stLFR
     int min_qual = 0;   // 0 = no masking; else ASCII threshold
     std::string line;   // scratch
+
+    // Python's gzip skips zero padding after a member's trailer; so do we.
+    void skip_member_padding() {
+        while (zs.avail_in > 0 && *zs.next_in == 0) {
+            ++zs.next_in;
+            --zs.avail_in;
+        }
+    }
 
     bool fill() {
         if (eof) return false;
@@ -69,18 +85,25 @@ struct Reader {
                 zs.next_in = in_buf;
                 zs.avail_in = static_cast<unsigned>(got);
             }
-            if (zs.avail_in == 0 && in_eof) break;
+            if (!member_open) skip_member_padding();
+            if (zs.avail_in == 0) {
+                if (!in_eof) continue;
+                // a clean end only right after a member's trailer
+                if (member_open) error = kErrTruncated;
+                break;
+            }
+            member_open = true;
             int ret = inflate(&zs, Z_NO_FLUSH);
             if (ret == Z_STREAM_END) {
                 // concatenated gzip members (BGZF etc.): restart
+                member_open = false;
                 inflateReset2(&zs, 31);
-                if (zs.avail_in == 0 && in_eof) break;
             } else if (ret != Z_OK && ret != Z_BUF_ERROR) {
-                break;  // corrupt stream: stop at what we have
-            } else if (ret == Z_BUF_ERROR && zs.avail_in == 0 && in_eof) {
+                error = kErrCorrupt;  // bad block, CRC or length mismatch
                 break;
             }
         }
+        if (error) eof = true;
         buf_len = kBufSize - static_cast<int>(zs.avail_out);
         if (buf_len <= 0) {
             eof = true;
@@ -202,7 +225,9 @@ void pgn_close(void* handle) {
     delete r;
 }
 
-// Read up to n records. Returns the number read (0 = EOF).
+// Read up to n records. Returns the number read (0 = EOF), or -1 when
+// the gzip stream is truncated or corrupt (pgn_error says which); the
+// records of that call are then not to be used.
 // codes may be null (skip encoding); barcodes/names may be null.
 // With a non-null lowq plane ((n, max_len) uint8), quality masking is
 // REPORTED there (1 where quality < min_qual) instead of applied to the
@@ -253,7 +278,13 @@ static int pgn_read_impl(void* handle, int n, int max_len, uint8_t* codes,
         if (names) put_str(names + static_cast<int64_t>(i) * nm_w, nm_w,
                            name);
     }
-    return i;
+    return r->error ? -1 : i;
+}
+
+// 0, or why the stream failed: 1 = truncated gzip member, 2 = corrupt
+// gzip data (a bad deflate block, header, CRC or length).
+int pgn_error(void* handle) {
+    return static_cast<Reader*>(handle)->error;
 }
 
 int pgn_read(void* handle, int n, int max_len, uint8_t* codes,
@@ -342,6 +373,7 @@ long long pgn_sort_feed(const char* path, int out_fd) {
         ok = w.put(rec);
         ++n;
     }
+    if (r->error) ok = false;
     if (ok) ok = w.flush();
     pgn_close(h);
     return ok ? n : -1;
@@ -594,6 +626,7 @@ long long pgn_sort_radix(const char* in_path, const char* out_path,
         ok = put(rec);
         ++n;
     }
+    if (r->error) ok = false;
     pgn_close(h);
     if (!ok) {
         top.cleanup();
@@ -670,7 +703,7 @@ long long pgn_sort_emit(int in_fd, const char* out_path) {
 // the per-pair Python loop was ~10 s of the 240k-read driver bench
 // (bench.py --driver-ours split) where the reference pays ~1 s.
 //
-// Returns pairs written, or -1 on IO error (callers fall back).
+// Returns 0, or -1 on an IO error or a truncated or corrupt gzip input.
 long long pgn_extract_reads(const char* tsv_path, const char* out_prefix,
                             const char* in1, const char* in2,
                             int interleaved) {
@@ -769,6 +802,7 @@ long long pgn_extract_reads(const char* tsv_path, const char* out_prefix,
                      barcode.size() &&
                  fputc('\n', o.bc) != EOF;
         }
+        if (r && r->error) ok = false;
         if (h) pgn_close(h);
     } else if (ok) {
         void* h1 = pgn_open(in1, 0);
@@ -821,6 +855,7 @@ long long pgn_extract_reads(const char* tsv_path, const char* out_prefix,
                      barcode.size() &&
                  fputc('\n', o.bc) != EOF;
         }
+        if ((r1 && r1->error) || (r2 && r2->error)) ok = false;
         if (h1) pgn_close(h1);
         if (h2) pgn_close(h2);
     }

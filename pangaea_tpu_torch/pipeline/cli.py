@@ -3,11 +3,12 @@
 Usage: ``python -m pangaea_tpu_torch.pipeline.cli -i reads.fq.gz -o out -c 30``
 
 The flags are pangaea_tpu's (pipeline/cli.py:17-71) plus ``--device``
-(default ``cuda``; ``cpu`` runs the plain PyTorch versions). Flags of
-paths this port does not run yet are accepted by the parser and rejected
-with an error: step 4 and its inputs, bfloat16 matmuls, and
-pangaea_tpu's host routing of small clustering fits. k > 15 is rejected
-by step 1 itself.
+(default ``cuda``; ``cpu`` runs the plain PyTorch versions), and the
+default steps are the same ``1,2,3,4``. Flags of paths this port does
+not run yet are accepted by the parser and rejected with an error:
+``-m`` (metaphlan), bfloat16 matmuls, pangaea_tpu's host routing of
+small clustering fits, and a missing ``-c`` when step 3 runs (the
+automatic cluster count). k > 15 is rejected by step 1 itself.
 """
 
 from __future__ import annotations
@@ -24,8 +25,7 @@ from pangaea_tpu_torch.config import (AssemblyConfig, ClusterConfig,
 _UNPORTED = (
     ("matmul_dtype", "float32"),
     ("cluster_device_min_elems", None),
-    ("metaphlan_db", ""), ("spades", ""), ("local_assembly", ""),
-    ("athena", ""), ("low_abd_cut", "10,30"), ("low_assembler", "megahit"),
+    ("metaphlan_db", ""),
 )
 
 
@@ -80,7 +80,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-at", "--athena", type=str, default="")
     p.add_argument("-lt", "--low_abd_cut", type=str, default="10,30")
     p.add_argument("-la", "--low_assembler", type=str, default="megahit")
-    p.add_argument("-st", "--steps", type=str, default="1,2,3")
+    p.add_argument("-st", "--steps", type=str, default="1,2,3,4")
     return p
 
 
@@ -90,8 +90,6 @@ def check_supported(p: argparse.ArgumentParser,
     for dest, ok in _UNPORTED:
         if getattr(args, dest) != ok:
             p.error(f"--{dest} is not supported by the PyTorch port yet")
-    if "4" in args.steps.split(","):
-        p.error("step 4 (assembly) is not ported yet: use -st 1,2,3")
     if args.clusters is None and "3" in args.steps.split(","):
         p.error("-c/--clusters is required (the automatic count is not "
                 "ported yet)")

@@ -1,4 +1,4 @@
-"""The resumable pipeline, steps 1-3 (reference: src/pangaea.py:23-125).
+"""The 4-step resumable pipeline (reference: src/pangaea.py:23-125).
 
 Port of pangaea_tpu/pipeline/run.py. Step layout and resume markers
 mirror the reference exactly:
@@ -6,12 +6,13 @@ mirror the reference exactly:
   1.features/feature_finished      feature extraction
   2.vae/model_finished             VAE training + latent dump
   3.clustering/clustering_finished RPH-KMeans + per-bin read extraction
+  4.assembly/assemble_finished     multi-threshold reassembly + ensemble
 
 Each step is skipped when its marker exists (check_steps_finish,
 src/pangaea.py:23-35) and can be re-run from its artifacts. Every step
-runs on the pipeline's device. Not ported yet (ROADMAP.md): step 4
-(assembly) and the automatic cluster count (metaphlan diversity / BIC);
-both raise NotImplementedError.
+runs on the pipeline's device. Not ported yet (ROADMAP.md): the automatic
+cluster count (metaphlan diversity / BIC), which raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,9 +52,12 @@ class Pipeline:
         self.feature_dir = os.path.join(cfg.output, "1.features")
         self.model_dir = os.path.join(cfg.output, "2.vae")
         self.cluster_dir = os.path.join(cfg.output, "3.clustering")
+        self.assembly_dir = os.path.join(cfg.output, "4.assembly")
         self._fe_pending = None
         # the step-1 extractor of the last run (window counts, phases)
         self.feature_extractor = None
+        # step 4's sub-stage seconds, counts and backends (asm/final.py)
+        self.assembly_stats: dict = {}
         self.timer = StageTimer()
 
     # ---- step 1 -----------------------------------------------------------
@@ -139,14 +143,19 @@ class Pipeline:
                   "w") as f:
             f.write("finished")
 
+    # ---- step 4 -----------------------------------------------------------
+
+    def step4_assemble(self):
+        from pangaea_tpu_torch.asm.final import final_assemble
+        self.assembly_stats = {}
+        final_assemble(self.cfg, self.cluster_dir, self.assembly_dir,
+                       device=self.device, stats=self.assembly_stats)
+
     # ---- run --------------------------------------------------------------
 
     def run(self) -> None:
         cfg = self.cfg
         steps = cfg.steps.split(",")
-        if "4" in steps and not check_step_finished(cfg.output, "4"):
-            raise NotImplementedError(
-                "step 4 (assembly) is not ported yet: run steps 1,2,3")
         timer = self.timer
         feats = None
         if "1" not in steps:
@@ -173,6 +182,15 @@ class Pipeline:
             log.info("start clustering")
             with timer.stage("step3_cluster"):
                 self.step3_cluster()
+
+        if "4" not in steps:
+            log.info("skip step 4: assembly")
+        elif check_step_finished(cfg.output, "4"):
+            log.info("step 4: assembly finished")
+        else:
+            log.info("start assembly")
+            with timer.stage("step4_assemble"):
+                self.step4_assemble()
         self.finish()
         timer.dump(os.path.join(cfg.output, "metrics.json"))
         log.info("program finished successfully")

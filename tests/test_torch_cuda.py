@@ -190,3 +190,33 @@ def test_spill_aggregate_on_card_equals_cpu(cuda, weighted):
     table = torch.randint(-1, 40, (n_runs,), dtype=torch.int32)
     assert torch.equal(kf.map_run_bins(table.to(cuda), ids).cpu(),
                        kf.map_run_bins(table, want[0]))
+
+
+def _contigs(seed):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    seq = lambda n: "".join(rng.choice(list("ACGT"), n))  # noqa: E731
+    rep = seq(400)
+    return [(f"c{i}", seq(3000) + rep + seq(2000)) for i in range(8)], seq
+
+
+@pytest.mark.parametrize("k", [13, 7])
+def test_kmer_mapper_on_card_equals_cpu(cuda, k):
+    """The mapper's index table and its (best, votes, nvalid) on the card
+    are bit-equal to the CPU's; the run-length scan launches cummax."""
+    import numpy as np
+    from pangaea_tpu_torch.asm.mapper import KmerMapper
+    contigs, seq = _contigs(k)
+    maps = {}
+    for dev in ("cpu", cuda):
+        m = KmerMapper(k=k, max_row_len=256, rows_per_batch=16, device=dev)
+        m.index_contigs(contigs)
+        maps[str(dev)] = m
+    assert torch.equal(maps["cuda"].table.cpu(), maps["cpu"].table)
+    reads = [s[i:i + 150] for _, s in contigs for i in range(0, 5000, 97)]
+    reads += [seq(150) for _ in range(50)] + ["N" * 150, "", seq(1100)]
+    before = scan.cummax.launches
+    got = maps["cuda"].map_reads(reads)
+    assert scan.cummax.launches == before + 1
+    for a, b in zip(got, maps["cpu"].map_reads(reads)):
+        np.testing.assert_array_equal(a, b)

@@ -6,10 +6,14 @@ on the same seeded simulator input it must return pangaea_tpu's arrays
 bit for bit, with and without the quality plane, and its group-event
 streams must equal pangaea_tpu's native streams batch for batch and the
 Python packer's row for row. Paired extract_reads bin files must be
-byte-equal to pangaea_tpu's.
+byte-equal to pangaea_tpu's. Unlike pangaea_tpu's reader, the port's
+raises on a truncated or corrupt gzip input, as Python's gzip does, on
+every native path (the reader, extract_reads, step 1).
 """
 
+import gzip
 import os
+import zlib
 
 import numpy as np
 import pytest
@@ -25,7 +29,7 @@ from pangaea_tpu_torch.io.grouping import (iter_barcode_groups,
 from pangaea_tpu_torch.io.packing import GroupPacker
 from pangaea_tpu_torch.io.sim import simulate_linked_reads
 from pangaea_tpu_torch.kernels import build
-from pangaea_tpu_torch.native import NativeFastqReader
+from pangaea_tpu_torch.native import CorruptGzipError, NativeFastqReader
 
 SIM = dict(n_species=3, genome_len=12_000, n_barcodes=200,
            pairs_per_barcode=12, read_len=90, error_rate=0.01,
@@ -215,3 +219,118 @@ def test_overlong_read_raises_on_native_stream(reads):
     with pytest.raises(tfp.OverlongReadError):
         _events(tfp.native_group_events(reads["interleaved"], 2000, 64,
                                         256, 16, keep_dropped=True))
+
+
+# ---- truncated and corrupt gzip input ----------------------------------------
+
+def _damaged(data: bytes, kind: str) -> bytes:
+    """A one-member .gz cut inside the deflate data, inside the 8-byte
+    trailer or inside the header, or with one deflate byte flipped."""
+    if kind == "member":
+        return data[:len(data) // 2]
+    if kind == "trailer":
+        return data[:-4]
+    if kind == "header":
+        return data[:6]
+    mid = len(data) // 2
+    return data[:mid] + bytes([data[mid] ^ 0xFF]) + data[mid + 1:]
+
+
+DAMAGE = ["member", "trailer", "header", "flipped"]
+
+
+def _damaged_file(reads, tmp_path, kind):
+    with open(reads["interleaved"], "rb") as f:
+        data = f.read()
+    path = str(tmp_path / f"{kind}.fq.gz")
+    with open(path, "wb") as f:
+        f.write(_damaged(data, kind))
+    # what Python's gzip raises on the same bytes: the behaviour matched
+    with pytest.raises(EOFError if kind != "flipped" else
+                       (OSError, zlib.error)):
+        with gzip.open(path) as f:
+            f.read()
+    return path, (EOFError if kind != "flipped" else CorruptGzipError)
+
+
+@pytest.mark.parametrize("kind", DAMAGE)
+def test_native_reader_raises_on_damaged_gzip(reads, tmp_path, kind):
+    path, exc = _damaged_file(reads, tmp_path, kind)
+    with pytest.raises(exc, match=os.path.basename(path)):
+        _read_all(NativeFastqReader, path, max_len=96)
+    if exc is CorruptGzipError:
+        assert issubclass(exc, OSError)
+
+
+@pytest.mark.parametrize("kind", DAMAGE)
+def test_extract_reads_raises_on_damaged_gzip(reads, tmp_path, kind):
+    path, _ = _damaged_file(reads, tmp_path, kind)
+    tsv = str(tmp_path / "clusters.tsv")
+    bcs = set()
+    for _, _, b in _read_all(NativeFastqReader, reads["interleaved"],
+                             max_len=1):
+        bcs.update(x.decode() for x in b)
+    with open(tsv, "w") as f:
+        f.write("0\t" + ",".join(sorted(bcs)) + "\n")
+    with pytest.raises(OSError, match="native extract_reads failed"):
+        ter.extract_reads(tsv, str(tmp_path / "cluster"), interleaved=path)
+
+
+@pytest.mark.parametrize("kind", DAMAGE)
+def test_step1_raises_on_damaged_gzip_and_leaves_no_marker(reads, tmp_path,
+                                                           kind):
+    """The reader's error crosses the stream's prefetch thread to the
+    caller of extract_features; step 1 writes no marker."""
+    from pangaea_tpu_torch.config import FeatureConfig, PangaeaConfig
+    from pangaea_tpu_torch.pipeline import Pipeline, check_step_finished
+    path, exc = _damaged_file(reads, tmp_path, kind)
+    out = str(tmp_path / "out")
+    # auto_row_len off: the only native read is the stream's own
+    cfg = PangaeaConfig(interleaved_reads=path, output=out, steps="1",
+                        feature=FeatureConfig(auto_row_len=False,
+                                              reads_per_batch=512))
+    with pytest.raises(exc):
+        Pipeline(cfg, device="cpu").run()
+    assert not check_step_finished(out, "1")
+    assert not os.path.exists(os.path.join(out, "1.features",
+                                           "feature_finished"))
+
+
+def _python_arrays(path, max_len):
+    """The reader's (codes, lengths, barcodes) of every record, computed
+    from Python's gzip."""
+    from pangaea_tpu_torch.io.fastq import BarcodeParser, iter_fastq_records
+    from pangaea_tpu_torch.kernels.encode import encode_bases
+    parser = BarcodeParser()
+    codes, lengths, bcs = [], [], []
+    for rec in iter_fastq_records(path):
+        row = np.full(max_len, 4, np.uint8)
+        c = encode_bases(rec.seq.encode())[:max_len]
+        row[:len(c)] = c
+        codes.append(row)
+        lengths.append(len(rec.seq))
+        bcs.append(parser.parse(rec.header)[1].encode())
+    return np.stack(codes), np.array(lengths, np.int32), np.array(bcs)
+
+
+@pytest.mark.parametrize("form", ["whole", "bgzf", "zero_padded"])
+def test_native_reader_whole_and_multi_member_gzip(reads, tmp_path, form):
+    """A whole file, the same records as BGZF blocks (many members with
+    the BC extra field) and a file with zero padding after its member all
+    read byte-equal to Python's gzip."""
+    from pangaea_tpu_torch.io.bam import bgzf_write
+    src = reads["interleaved"]
+    path = str(tmp_path / f"{form}.fq.gz")
+    if form == "whole":
+        path = src
+    elif form == "bgzf":
+        with gzip.open(src) as f, open(path, "wb") as out:
+            bgzf_write(out, f.read(), block_size=5000)
+    else:
+        with open(src, "rb") as f, open(path, "wb") as out:
+            out.write(f.read() + b"\0" * 100)
+    got = _read_all(NativeFastqReader, path, max_len=96)
+    want = _python_arrays(path, 96)
+    for i, w in enumerate(want):
+        np.testing.assert_array_equal(np.concatenate([g[i] for g in got]), w)
+    assert len(want[1]) == 2 * SIM["n_barcodes"] * SIM["pairs_per_barcode"]

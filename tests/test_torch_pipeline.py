@@ -118,9 +118,6 @@ def test_step3_writes_clusters_through_unique_temp(port_run, sim,  # noqa: F811
 
 def test_unported_requests_raise(tmp_path, sim):  # noqa: F811
     reads, _ = sim
-    cfg = _port_config(reads, str(tmp_path / "a")).replace(steps="1,2,3,4")
-    with pytest.raises(NotImplementedError):
-        Pipeline(cfg, device="cpu").run()
     cfg = _port_config(reads, str(tmp_path / "k")).replace(steps="1")
     cfg.feature.kmer = 16
     with pytest.raises(NotImplementedError):
@@ -144,11 +141,9 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("argv", [
-    ["-st", "1,2,3,4", "-c", "4"],
-    ["-c", "4", "-sp", "seeds.fa"],       # step-4 inputs
     ["-c", "4", "--matmul_dtype", "bfloat16"],
     ["-c", "4", "--cluster_device_min_elems", "10"],
-    ["-c", "4", "-lt", "5,20"],
+    ["-c", "4", "-m", "db"],   # metaphlan: the automatic count
     [],  # no -c: the automatic count is not ported
 ])
 def test_cli_rejects_unported_flags(argv, tmp_path):
@@ -176,13 +171,34 @@ def test_cli_builds_config():
     assert (cfg.feature.spill_store, cfg.feature.spill_dir) == ("disk", "sp")
 
 
+def test_cli_honours_step4_flags():
+    """The default steps are pangaea_tpu's 1,2,3,4, and the step-4 inputs
+    reach the config."""
+    p = cli.build_parser()
+    args = p.parse_args(["-i", "r.fq", "-o", "o", "-c", "4"])
+    cli.check_supported(p, args)
+    assert cli.config_from_args(args).steps == "1,2,3,4"
+    args = p.parse_args(["-i", "r.fq", "-o", "o", "-c", "4", "-sp", "s.fa",
+                         "-lc", "l.fa", "-at", "a.fa", "-lt", "5,20",
+                         "-la", "spades", "-st", "4"])
+    cli.check_supported(p, args)
+    cfg = cli.config_from_args(args)
+    assert (cfg.spades, cfg.local_assembly, cfg.athena, cfg.steps) == \
+        ("s.fa", "l.fa", "a.fa", "4")
+    assert (cfg.assembly.low_abd_cut, cfg.assembly.low_assembler) == \
+        ("5,20", "spades")
+
+
 def test_port_imports_no_jax_and_no_pangaea_tpu():
     code = (
         "import importlib, pkgutil, sys\n"
         "import pangaea_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'pangaea_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for m in ('native', 'io.fast_packing', 'features'):\n"
+        "for m in ('native', 'io.fast_packing', 'features', 'io.bam',\n"
+        "          'asm.tools', 'asm.fasta', 'asm.naive', 'asm.unmapped',\n"
+        "          'asm.mapper', 'asm.bin_assembly', 'asm.merge_olc',\n"
+        "          'asm.circular_logic', 'asm.circularize', 'asm.final'):\n"
         "    assert 'pangaea_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pangaea_tpu' or m.startswith('pangaea_tpu.')]\n"
