@@ -21,6 +21,8 @@ Phases, each fatal on failure:
    repeat   — each of the six variants 50 times on one input of 2^24+13
               elements, every result bit-equal (a memory-ordering fault
               in the look-back shows only now and then).
+   simulate — the FASTQs of phases 3, 6 and 8 (k31), made from their
+              seeds in three spawned processes at once.
 3. pipeline — the port's steps 1-3 (FASTQ -> features -> VAE latent ->
               clusters.tsv -> per-bin reads) on cuda, at the bench.py
               geometry of 800k reads (8 species x 200 kb, 10k barcodes x
@@ -57,13 +59,28 @@ Phases, each fatal on failure:
               pairs bit-equal; and merge_olc's builtin containment filter
               (binned contigs as seeds, the step's pool as local contigs)
               byte-equal on cuda and cpu.
+8. step 1 at every k and on every histogram path, on phase 3's and
+   phase 6's FASTQs:
+   k21      — steps 1-3 at k = 21 on cuda (int64 keys into the same
+              scans; ARI >= 0.5); step 1 at k = 21 on the CPU byte-equal
+              to the card's; the three spills of phase 5 at k = 21; paired
+              step 1 at k = 21 in cap, then spilled (aggregated, device
+              store), byte-equal.
+   k31      — a small simulated file (32,000 reads, seed 8): step 1 at
+              k = 31 (sentinel 2^62) on cuda and on the CPU, byte-equal.
+   table    — hist_impl 'scatter' and 'segsum' at k = 15 (the 4 GiB
+              dense table on the card, no scan) on both FASTQs:
+              byte-equal to phase 3's and phase 6's sort-join matrices.
+   jellyfish — the k = 15 table of phase 3's FASTQ counted on the card,
+              exported as a jellyfish dump, imported back (equal table),
+              and group_features on it gives phase 3's matrices.
 
 Every path's launch counts are zeroed just before it and read just
 after it. After the phases, cummax and cummin_reverse are timed at the
-main path's scan length, cumsum at the paired path's, and cummax again
-at the mapper's flat (65,536 x 244) length on a real run-boundary array,
-beside torch.cummax along its rows; cumsum is also timed at 2^28 in
-phase 2. Every time is the median CUDA-event time of one call. A JSON line gives copy_ms, the time of one device-to-device
+main path's scan length, cumsum at the paired path's, all three again at
+the k = 21 path's, and cummax at the mapper's flat (65,536 x 244) length
+on a real run-boundary array, beside torch.cummax along its rows; cumsum
+is also timed at 2^28 in phase 2. Every time is the median CUDA-event time of one call. A JSON line gives copy_ms, the time of one device-to-device
 copy of the same int32 bytes at each measured length (the
 achievable-bandwidth yardstick beside the bound). The line before the
 last is one JSON object with every kernel (name, route, source, the TPU
@@ -352,6 +369,10 @@ SIM = dict(n_species=8, genome_len=200_000, n_barcodes=10_000,
 # phase 6: the same geometry as -1/-2 files, with errors and low-quality
 # bases so the quality mask matters
 PAIRED_SIM = dict(SIM, error_rate=0.005, low_qual_rate=0.02)
+# phase 8's k = 31 file: small, with errors and low-quality bases
+K31_SIM = dict(n_species=2, genome_len=60_000, n_barcodes=400,
+               pairs_per_barcode=40, read_len=150, error_rate=0.005,
+               low_qual_rate=0.02, seed=8)
 N_CLUSTERS = 8
 ARI_GATE = 0.5
 SPILL_CAP = 1 << 25   # phase 5-6 window cap (phase 3's stream is ~2^26.7)
@@ -406,6 +427,18 @@ def sim_data(name: str, sim: dict, paired: bool) -> tuple:
     return paths, res.barcode_species
 
 
+def simulate_all(specs: list) -> list:
+    """sim_data of every (name, sim, paired) in ``specs`` at once, one
+    spawned process each: the simulator is single-threaded host Python
+    and gzip, and nothing else runs meanwhile."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(specs), mp_context=ctx) as pool:
+        futures = [pool.submit(sim_data, *spec) for spec in specs]
+        return [f.result() for f in futures]
+
+
 def read_clusters(tsv: str) -> dict:
     out = {}
     with open(tsv) as f:
@@ -429,6 +462,10 @@ def check_launched(what: str, launches: dict, names) -> None:
 
 
 def log_stats(what: str, stats: dict) -> None:
+    if stats["path"] == "table":
+        log(f"{what}: step-1 table path: global pass {stats['global_s']:.3f}"
+            f" s, group pass {stats['group_s']:.3f} s")
+        return
     log(f"{what}: step-1 io {stats['io']}, spill {stats['spill']}, store "
         f"{stats['store']}; stream {stats['stream_s']:.3f} s, sort-join "
         f"{stats['sortjoin_s']:.3f} s, replay {stats['replay_s']:.3f} s; "
@@ -508,45 +545,50 @@ def same_features(a: tuple, b: tuple) -> bool:
                     for x, y in zip(a[1:], b[1:])))
 
 
-def load_features(feature_dir: str) -> tuple:
+def load_features(feature_dir: str, **feature) -> tuple:
     from pangaea_tpu_torch.config import FeatureConfig
     from pangaea_tpu_torch.features import FeatureExtractor
-    return FeatureExtractor(FeatureConfig(), feature_dir,
+    return FeatureExtractor(FeatureConfig(**feature), feature_dir,
                             device="cpu").load_features()
 
 
-def phase_exact(fq: str, feature_dir: str) -> None:
+def phase_exact(fq: str, feature_dir: str, what: str = "exact",
+                **feature) -> None:
     """Step 1 with the plain versions on the CPU must reproduce the
-    card's feature files byte for byte."""
+    card's feature files in ``feature_dir`` byte for byte."""
     import gzip
     from pangaea_tpu_torch.config import FeatureConfig
     from pangaea_tpu_torch.features import FeatureExtractor
-    cpu_dir = os.path.join(smoke_dir(), "cpu_features")
+    cpu_dir = os.path.join(smoke_dir(), f"cpu_features_{what}")
     shutil.rmtree(cpu_dir, ignore_errors=True)
     t0 = time.perf_counter()
-    fe_cpu = FeatureExtractor(FeatureConfig(), cpu_dir, device="cpu")
+    fe_cpu = FeatureExtractor(FeatureConfig(**feature), cpu_dir,
+                              device="cpu")
     names, abd, tnf = fe_cpu.extract_features(interleaved=fq)
     secs = time.perf_counter() - t0
-    fe_gpu = FeatureExtractor(FeatureConfig(), feature_dir, device="cpu")
+    fe_gpu = FeatureExtractor(FeatureConfig(**feature), feature_dir,
+                              device="cpu")
     if not same_features((names, abd, tnf), fe_gpu.load_features()):
-        raise AssertionError("CPU step-1 matrices differ from the card's")
+        raise AssertionError(f"{what}: CPU step-1 matrices differ from the "
+                             "card's")
     for cpu_path, gpu_path in ((fe_cpu.abd_gz, fe_gpu.abd_gz),
                                (fe_cpu.tnf_gz, fe_gpu.tnf_gz)):
         with gzip.open(cpu_path) as a, gzip.open(gpu_path) as b:
             if a.read() != b.read():
-                raise AssertionError(f"{os.path.basename(cpu_path)}: CPU "
-                                     "and card CSV bytes differ")
-    log(f"exact: CPU step 1 in {secs:.3f} s; {len(names)} barcodes, "
+                raise AssertionError(f"{what}: {os.path.basename(cpu_path)}"
+                                     ": CPU and card CSV bytes differ")
+    log(f"{what}: CPU step 1 in {secs:.3f} s; {len(names)} barcodes, "
         f"abundance {abd.shape} and TNF {tnf.shape} byte-equal to the card's")
 
 
 # ---- phases 5-6 ------------------------------------------------------------
 
-def run_step1(what: str, inputs: dict, expect: tuple, kernels,
-              spill: str, store: str, **feature) -> dict:
+def run_step1(what: str, inputs: dict, expect, kernels, spill: str,
+              store: str, **feature) -> dict:
     """Step 1 alone on cuda with the launch counts zeroed just before;
-    its matrices must equal ``expect`` and its stats must name the path
-    that ran."""
+    its matrices must equal ``expect`` (unless None) and its stats must
+    name the path that ran: (spill, store) of the sort-join, or spill
+    "table" for the dense-table path, which launches no scan."""
     import torch
     from pangaea_tpu_torch.config import FeatureConfig
     from pangaea_tpu_torch.features import FeatureExtractor
@@ -564,14 +606,20 @@ def run_step1(what: str, inputs: dict, expect: tuple, kernels,
     stats = fe.stats
     log(f"{what}: step 1 on cuda in {secs:.3f} s; scan launches {launches}")
     log_stats(what, stats)
-    if (stats["spill"], stats["store"]) != (spill, store):
-        raise AssertionError(f"{what}: ran spill {stats['spill']} / store "
-                             f"{stats['store']}, expected {spill} / {store}")
+    ran = (("table", None) if stats["path"] == "table"
+           else (stats["spill"], stats["store"]))
+    if ran != (spill, store):
+        raise AssertionError(f"{what}: ran {ran}, expected {(spill, store)}")
     check_launched(what, launches, kernels)
-    if not same_features(got, expect):
-        raise AssertionError(f"{what}: matrices differ from the in-cap run")
-    log(f"{what}: {len(got[0])} barcodes byte-equal to the in-cap run")
-    return {"launches": launches, "stats": dict(stats), "seconds": secs}
+    if spill == "table" and any(launches.values()):
+        raise AssertionError(f"{what}: the table path launched {launches}")
+    if expect is not None:
+        if not same_features(got, expect):
+            raise AssertionError(f"{what}: matrices differ from the "
+                                 "expected run's")
+        log(f"{what}: {len(got[0])} barcodes byte-equal to the expected run")
+    return {"launches": launches, "stats": dict(stats), "seconds": secs,
+            "features": got}
 
 
 def phase_spill(fq: str, feature_dir: str) -> dict:
@@ -767,6 +815,120 @@ def phase_assembly(run: dict, fq: str, truth: dict) -> dict:
             "boundary": boundary}
 
 
+# ---- phase 8 -------------------------------------------------------------
+
+LARGE_K = 21
+
+
+def phase_k21(fq: str, truth: dict, r1: str, r2: str) -> dict:
+    """k = 21 on int64 keys: steps 1-3 on cuda, step 1 on the CPU, the
+    three spills, and paired step 1 in cap and spilled."""
+    from pangaea_tpu_torch.config import (ClusterConfig, FeatureConfig,
+                                          PangaeaConfig)
+    k = {"kmer": LARGE_K}
+    cfg = PangaeaConfig(interleaved_reads=fq,
+                        output=os.path.join(smoke_dir(), "k21_run"),
+                        steps="1,2,3", feature=FeatureConfig(**k),
+                        cluster=ClusterConfig(n_clusters=N_CLUSTERS))
+    run = run_pipeline("k21", cfg, truth, FILL_SCANS)
+    if run["stats"]["spill"] != "none":
+        raise AssertionError(f"k21: step 1 ran {run['stats']}")
+    phase_exact(fq, run["feature_dir"], "k21-exact", **k)
+    expect = load_features(run["feature_dir"], **k)
+    inputs = {"interleaved": fq}
+    spill_dir = os.path.join(smoke_dir(), "spill_store_k21")
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    paths = {
+        "k21-spill-agg-device": run_step1(
+            "k21-spill-agg-device", inputs, expect, ALL_SCANS, "agg",
+            "device", sortjoin_max_windows=SPILL_CAP, **k),
+        "k21-spill-agg-disk": run_step1(
+            "k21-spill-agg-disk", inputs, expect, ALL_SCANS, "agg", "disk",
+            sortjoin_max_windows=SPILL_CAP, spill_store="disk",
+            spill_dir=spill_dir, **k),
+        "k21-spill-raw": run_step1(
+            "k21-spill-raw", inputs, expect, FILL_SCANS, "raw", "host",
+            sortjoin_max_windows=SPILL_CAP, spill_agg="off", **k),
+    }
+    if os.listdir(spill_dir):
+        raise AssertionError(f"k21 disk spill left {os.listdir(spill_dir)}")
+    paired = {"reads1": r1, "reads2": r2}
+    paths["k21-paired"] = run_step1("k21-paired", paired, None, ALL_SCANS,
+                                    "none", "device", **k)
+    paths["k21-paired-spill-agg"] = run_step1(
+        "k21-paired-spill-agg", paired, paths["k21-paired"]["features"],
+        ALL_SCANS, "agg", "device", sortjoin_max_windows=SPILL_CAP, **k)
+    return {"run": run, "paths": paths}
+
+
+def phase_k31(fq: str) -> dict:
+    """k = 31 (the largest key, sentinel 2^62) on a small file: step 1 on
+    cuda, then on the CPU, byte-equal."""
+    run = run_step1("k31", {"interleaved": fq}, None, FILL_SCANS, "none",
+                    "device", kmer=31)
+    phase_exact(fq, os.path.join(smoke_dir(), "k31"), "k31-exact", kmer=31)
+    return run
+
+
+def phase_table(fq: str, feature_dir: str, r1: str, r2: str,
+                paired_dir: str) -> dict:
+    """The dense-table paths at k = 15 on both FASTQs: byte-equal to the
+    sort-join's matrices of phases 3 and 6, no scan launched."""
+    runs = {}
+    for impl in ("scatter", "segsum"):
+        runs[f"table-{impl}"] = run_step1(
+            f"table-{impl}", {"interleaved": fq}, load_features(feature_dir),
+            (), "table", None, hist_impl=impl)
+        runs[f"table-{impl}-paired"] = run_step1(
+            f"table-{impl}-paired", {"reads1": r1, "reads2": r2},
+            load_features(paired_dir), (), "table", None, hist_impl=impl)
+    return runs
+
+
+def phase_jellyfish(fq: str, feature_dir: str) -> dict:
+    """Phase 3's k = 15 table counted on the card, exported as a
+    jellyfish dump, imported back: the same table, and group_features on
+    it gives phase 3's matrices."""
+    import torch
+    from pangaea_tpu_torch.config import FeatureConfig
+    from pangaea_tpu_torch.features import FeatureExtractor
+    d = os.path.join(smoke_dir(), "jellyfish")
+    shutil.rmtree(d, ignore_errors=True)
+    fe = FeatureExtractor(FeatureConfig(hist_impl="scatter"), d,
+                          device="cuda")
+    t = {}
+    t0 = time.perf_counter()
+    table = fe.global_kmer_table(interleaved=fq)
+    torch.cuda.synchronize()
+    t["count_s"] = time.perf_counter() - t0
+    dump = os.path.join(d, "mer_counts.dump.tsv")
+    t0 = time.perf_counter()
+    n = fe.export_jellyfish_dump(table, dump)
+    t["export_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = fe.import_jellyfish_dump(dump)
+    torch.cuda.synchronize()
+    t["import_s"] = time.perf_counter() - t0
+    if back.device.type != "cuda" or not torch.equal(back, table):
+        raise AssertionError("jellyfish: the imported table differs from "
+                             "the exported one")
+    del table
+    t0 = time.perf_counter()
+    got = fe.group_features(back, interleaved=fq)
+    torch.cuda.synchronize()
+    t["group_s"] = time.perf_counter() - t0
+    del back
+    torch.cuda.empty_cache()
+    if not same_features(got, load_features(feature_dir)):
+        raise AssertionError("jellyfish: group_features on the imported "
+                             "dump differs from phase 3's matrices")
+    log(f"jellyfish: {n} k-mers ({os.path.getsize(dump)} bytes) exported "
+        f"and imported; group_features on the imported table gives phase "
+        f"3's {len(got[0])} barcodes; "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in t.items()))
+    return t
+
+
 def mapper_cummax_record(boundary, launches: int) -> dict:
     """cummax at the mapper's flat length: kernel vs plain version on the
     run-boundary array of a real map batch, beside torch.cummax along the
@@ -852,29 +1014,44 @@ def main() -> int:
     phase("build", phase_build)
     phase("kernels", phase_kernels)
     phase("repeat", phase_repeat)
-    (fq,), truth = phase("simulate", sim_data, "data", SIM, False)
+    ((fq,), truth), ((r1, r2), ptruth), ((fq31,), _) = phase(
+        "simulate", simulate_all, [("data", SIM, False),
+                                   ("data_paired", PAIRED_SIM, True),
+                                   ("data_k31", K31_SIM, False)])
     run = phase("pipeline", phase_pipeline, fq, truth)
     phase("exact", phase_exact, fq, run["feature_dir"])
     spills = phase("spill", phase_spill, fq, run["feature_dir"])
-    (r1, r2), ptruth = phase("simulate_paired", sim_data, "data_paired",
-                             PAIRED_SIM, True)
     paired = phase("paired", phase_paired, r1, r2, ptruth)
     asm = phase("assembly", phase_assembly, run, fq, truth)
+    k21 = phase("k21", phase_k21, fq, truth, r1, r2)
+    k31 = phase("k31", phase_k31, fq31)
+    tables = phase("table", phase_table, fq, run["feature_dir"], r1, r2,
+                   paired["feature_dir"])
+    phase("jellyfish", phase_jellyfish, fq, run["feature_dir"])
+    k21_paths = {"k21": k21["run"]["launches"],
+                 **{k: v["launches"] for k, v in k21["paths"].items()},
+                 "k31": k31["launches"]}
     by_path = {"pipeline": run["launches"],
                **{k: v["launches"] for k, v in spills.items()},
                "paired": paired["launches"],
                "paired-spill-agg": paired["spill"]["launches"],
-               "assembly": asm["launches"]}
+               "assembly": asm["launches"], **k21_paths,
+               **{k: v["launches"] for k, v in tables.items()}}
     n_main = run["stats"]["sorted_windows"]
     n_paired = paired["stats"]["sorted_windows"]
+    n_k21 = k21["run"]["stats"]["sorted_windows"]
     n_map = asm["boundary"].numel()
     records = phase("timing", kernel_records,
                     {"cummax": n_main, "cummin_reverse": n_main,
                      "cumsum": n_paired}, by_path)
+    # the scans again at the k = 21 sort length, with the large-k paths'
+    # launches
+    records += kernel_records({name: n_k21 for name in ALL_SCANS},
+                              k21_paths)
     records.append(mapper_cummax_record(asm.pop("boundary"),
                                         asm["launches"]["cummax"]))
-    copies = {str(n): copy_ms(n) for n in sorted({n_main, n_paired, n_map,
-                                                  SCAN_CAP})}
+    copies = {str(n): copy_ms(n) for n in sorted({n_main, n_paired, n_k21,
+                                                  n_map, SCAN_CAP})}
     torch.cuda.empty_cache()
     log(f"total {time.perf_counter() - t_start:.1f} s; phases "
         + json.dumps({k: round(v, 3) for k, v in phase_s.items()}))

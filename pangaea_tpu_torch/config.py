@@ -19,7 +19,7 @@ from typing import Optional
 class FeatureConfig:
     """Feature-extraction knobs (reference: src/pangaea.py:138-142)."""
 
-    kmer: int = 15            # abundance k-mer (-k)
+    kmer: int = 15            # abundance k-mer (-k), 1..31
     tnf_kmer: int = 4         # TNF k-mer (-tnf_k); long reads use 3
     window_size: int = 10     # abundance histogram bin width (-s)
     vector_size: int = 400    # abundance histogram bins (-v)
@@ -45,9 +45,10 @@ class FeatureConfig:
     # raises and step 1 reruns once at max_read_len (the Python packer
     # splits it across continuation rows).
     auto_row_len: bool = True
-    # Group-histogram implementation: 'auto', 'scatter', 'segsum', or
-    # 'sortjoin'. The port runs the sort-join ('auto' and 'sortjoin');
-    # the other two are pangaea_tpu paths not ported yet.
+    # Group-histogram implementation: 'auto' or 'sortjoin' run the
+    # sort-join (every k); 'scatter' or 'segsum' run the dense 4^k table
+    # (k <= 15; pangaea_tpu's 'segsum' is a TPU formulation of the same
+    # outputs, and the port runs one table path for both).
     hist_impl: str = "auto"
     # Host->device code-matrix transfer packing in pangaea_tpu. The port
     # uploads uint8 codes from pinned memory and does not read this.

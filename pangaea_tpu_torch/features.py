@@ -1,8 +1,12 @@
-"""Step-1 orchestrator: streams reads through the sort-join feature kernels.
+"""Step-1 orchestrator: streams reads through the feature kernels.
 
-Port of pangaea_tpu/features.py's sort-join path: interleaved (-i) or
-paired (-1/-2) input, k <= 15, any input size. One pass over the FASTQ
-collects every window's canonical k-mer key and the TNF counts; one sort
+Port of pangaea_tpu/features.py: interleaved (-i) or paired (-1/-2)
+input, k = 1..31, any input size, on the sort-join or the dense-table
+paths, and jellyfish dump export/import.
+
+The sort-join (``hist_impl`` 'auto' or 'sortjoin'; the only path at
+k > 15, whose keys are int64): one pass over the FASTQ collects every
+window's canonical k-mer key and the TNF counts; one sort
 of all keys gives every window's global k-mer count and so its abundance
 bin; a replay of the recorded group ids histograms the bins per barcode.
 This replaces the reference's jellyfish + count_kmer + count_tnf fan-out
@@ -27,15 +31,24 @@ This replaces the reference's jellyfish + count_kmer + count_tnf fan-out
   with ``spill_agg='off'`` the raw keys go to host RAM and are joined
   one key range at a time (:meth:`FeatureExtractor._chunked_sortjoin_bins`).
 
+The dense-table paths (``hist_impl`` 'scatter' or 'segsum', k <= 15):
+:meth:`FeatureExtractor.global_kmer_table` counts every read of the
+file(s) into a 4^k table on the device (the global pass, through the
+native reader, quality-masked on paired input), then
+:meth:`FeatureExtractor.group_features` streams the groups again and
+looks each window's count up. pangaea_tpu's 'segsum' is its TPU
+formulation of the same outputs; the port runs one table path for both
+names. The same table is what
+:meth:`FeatureExtractor.export_jellyfish_dump` writes and
+:meth:`FeatureExtractor.import_jellyfish_dump` reads (the reference's
+count_kmer ``-g`` input).
+
 Artifact names and resume semantics mirror src/feature.py:42-44,67-123:
 ``abundance.k{k}.v{v}.w{w}.m{m}.gz``, ``tnf.m{m}.gz`` and the
 ``feature_finished`` marker. The .gz CSVs are comma-separated
 ``barcode,c0,c1,...`` like the C++ tools' output. The port writes no
 ``.pkl`` caches of them: those are pandas pickles, and the port does
 not depend on pandas (steps 2-3 read the CSVs).
-
-Not ported yet (ROADMAP.md): k > 15, the dense-table and segsum paths,
-and jellyfish dump import/export. They raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -57,17 +70,24 @@ import torch
 from pangaea_tpu_torch.config import FeatureConfig
 from pangaea_tpu_torch.io.fast_packing import (OverlongReadError,
                                                native_group_events,
-                                               native_group_events_paired)
+                                               native_group_events_paired,
+                                               native_seq_batches)
 from pangaea_tpu_torch.io.grouping import (iter_barcode_groups,
                                            iter_read_pairs_interleaved,
                                            iter_read_pairs_paired)
 from pangaea_tpu_torch.io.packing import GroupPacker, PackedBatch
 from pangaea_tpu_torch.io.prefetch import prefetch
-from pangaea_tpu_torch.kernels.encode import num_canonical_kmers
-from pangaea_tpu_torch.kernels.features import (abundance_histogram_from_bins,
+from pangaea_tpu_torch.kernels.encode import (decode_kmers, encode_bases,
+                                              kmer_value_dtype,
+                                              num_canonical_kmers,
+                                              revcomp_kmers_np)
+from pangaea_tpu_torch.kernels.features import (abundance_histogram,
+                                                abundance_histogram_from_bins,
                                                 batch_kmer_keys,
                                                 batch_kmer_keys_weighted,
+                                                count_kmers_global,
                                                 kmer_key_sentinel,
+                                                make_global_table,
                                                 map_run_bins,
                                                 rank_lut_tensor,
                                                 sortjoin_bins,
@@ -130,6 +150,9 @@ class _SpillAgg:
         self.store = store
         self.budget = cfg.spill_device_budget
         self.dev_bytes = 0
+        # int32 words per key in the disk store's rows: an int64 key
+        # (k > 15) is stored as its (hi, lo) words
+        self.key_words = kmer_value_dtype(cfg.kmer).itemsize // 4
         self.buf: List[Part] = []
         self.groups: List[dict] = []
         self.n_entries = 0  # unique runs joined in phase B
@@ -177,7 +200,8 @@ class _SpillAgg:
         n_win = keys.numel()
         grp = {"n_windows": n_win, "n_runs": n_runs, "n_valid": n_valid,
                "bins_table": None}
-        cost = 4 * n_win + 8 * n_valid
+        # run ids, and per unique run its key and int32 weight sum
+        cost = 4 * n_win + (uniq.element_size() + 4) * n_valid
         if self.store == "device" and self.dev_bytes + cost > self.budget:
             log.info("spill run-id store: device budget reached (%d B); "
                      "later chunks go to host RAM", self.dev_bytes)
@@ -202,15 +226,24 @@ class _SpillAgg:
     def _bucket_append(self, uniq: np.ndarray, uw: np.ndarray,
                        chunk_id: int) -> None:
         """Append a chunk's unique runs to the key-hash bucket files as
-        (key, weight, chunk, run_id) int32 rows."""
+        (key words..., weight, chunk, run_id) int32 rows: one key word for
+        int32 keys, (hi, lo) for int64 keys, hashed from both words as
+        pangaea_tpu hashes its split-word keys."""
         nv = uw.shape[0]
         if nv == 0:
             return
-        hv = uniq.astype(np.uint32)
+        if self.key_words == 1:
+            hv = uniq.astype(np.uint32)
+            words = [uniq.astype(np.int32)]
+        else:
+            hi = (uniq >> 32).astype(np.uint32)
+            lo = (uniq & 0xFFFFFFFF).astype(np.uint32)
+            hv = hi ^ (lo * np.uint32(2654435761))
+            words = [hi.view(np.int32), lo.view(np.int32)]
         b = ((hv * np.uint32(2654435761)) >> np.uint32(26)).astype(np.int64)
-        rows = np.column_stack([uniq.astype(np.int32), uw.astype(np.int32),
-                                np.full(nv, chunk_id, np.int32),
-                                np.arange(nv, dtype=np.int32)])
+        rows = np.column_stack(words + [uw.astype(np.int32),
+                                        np.full(nv, chunk_id, np.int32),
+                                        np.arange(nv, dtype=np.int32)])
         for bi in np.unique(b):
             with open(self._bucket_paths[bi], "ab") as f:
                 rows[b == bi].tofile(f)
@@ -231,14 +264,19 @@ class _SpillAgg:
             mm[:] = -1
             tables.append(mm)
             g["bins_table"] = path
+        nk = self.key_words
         for bi, p in enumerate(self._bucket_paths):
-            rows = np.fromfile(p, np.int32).reshape(-1, 4)
+            rows = np.fromfile(p, np.int32).reshape(-1, nk + 3)
             if rows.shape[0] == 0:
                 continue
             self.n_entries += rows.shape[0]
-            bins = self.fe._chunked_sortjoin_bins([(rows[:, 0], rows[:, 1])],
+            keys = rows[:, 0]
+            if nk == 2:
+                keys = ((keys.view(np.uint32).astype(np.int64) << 32)
+                        | rows[:, 1].view(np.uint32))
+            bins = self.fe._chunked_sortjoin_bins([(keys, rows[:, nk])],
                                                   weighted=True)
-            chunks, runs = rows[:, 2], rows[:, 3]
+            chunks, runs = rows[:, nk + 1], rows[:, nk + 2]
             for c in np.unique(chunks):
                 m = chunks == c
                 tables[c][runs[m]] = bins[m]
@@ -373,11 +411,14 @@ class FeatureExtractor:
 
     def sortjoin_eligible(self, reads1: str, reads2: str,
                           interleaved: str) -> bool:
-        """The port's sort-join covers k <= 15 on interleaved input and on
-        paired input (the quality-masked global pass reproduced by the
-        weighted join), at any size (the spill removes the window cap)."""
+        """The sort-join serves ``hist_impl`` 'auto' and 'sortjoin' at
+        every k <= 31, on interleaved input and on paired input (the
+        quality-masked global pass reproduced by the weighted join), at
+        any size (the spill removes the window cap). pangaea_tpu's 'auto'
+        takes the table path on its CPU backend; the outputs are the
+        same."""
         c = self.cfg
-        return (bool(interleaved or (reads1 and reads2)) and c.kmer <= 15
+        return (bool(interleaved or (reads1 and reads2))
                 and c.hist_impl in ("auto", "sortjoin"))
 
     def _estimate_stream_windows(self, path_or_paths) -> Optional[int]:
@@ -510,8 +551,9 @@ class FeatureExtractor:
 
     def _pad_part(self, n: int, weighted: bool) -> Part:
         """n sentinel windows (weight 0 on the weighted path)."""
-        keys = torch.full((n,), kmer_key_sentinel(self.cfg.kmer),
-                          dtype=torch.int32, device=self.device)
+        k = self.cfg.kmer
+        keys = torch.full((n,), kmer_key_sentinel(k),
+                          dtype=kmer_value_dtype(k), device=self.device)
         if weighted:
             return keys, torch.zeros(n, dtype=torch.int32,
                                      device=self.device)
@@ -701,7 +743,8 @@ class FeatureExtractor:
         finally:
             if agg is not None:
                 agg.cleanup()
-        self.stats = {"windows": total, "sorted_windows": sorted_windows,
+        self.stats = {"path": "sortjoin", "windows": total,
+                      "sorted_windows": sorted_windows,
                       "batches": sum(len(m[1]) for m in chunk_meta),
                       "chunks": len(chunk_meta), "io": io,
                       "spill": "agg" if agg is not None
@@ -741,7 +784,7 @@ class FeatureExtractor:
         per-range weight sums stay exact. Sets ``_last_ranges`` to the
         number of ranges joined."""
         c = self.cfg
-        sent = np.int32(kmer_key_sentinel(c.kmer))
+        sent = kmer_key_sentinel(c.kmer)
         v = np.concatenate([p[0] for p in host_parts])
         w_all = (np.concatenate([p[1] for p in host_parts])
                  if weighted else None)
@@ -801,6 +844,122 @@ class FeatureExtractor:
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.int32, device=self.device)
 
+    # ---- dense-table paths (k <= 15) --------------------------------------
+
+    def global_kmer_table(self, reads1: str = "", reads2: str = "",
+                          interleaved: str = "") -> torch.Tensor:
+        """The global pass: every read of the input file(s) counted into
+        a (4^k,) int32 table on the device (jellyfish count). Paired
+        input is quality-masked by the reader (``min_qual_char``, as
+        pangaea_tpu's global pass does whenever both mates are given);
+        interleaved input wins when both forms are given."""
+        c = self.cfg
+        table = make_global_table(c.kmer, self.device)
+        paths = [interleaved] if interleaved else [reads1, reads2]
+        mq = c.min_qual_char if (reads1 and reads2) else None
+        batches = native_seq_batches(paths, self.row_len, c.reads_per_batch,
+                                     min_qual_char=mq)
+        events = (("batch", b) for b in batches)
+        for _, (_, host) in prefetch(self._host_tensors(events), depth=4):
+            codes, lengths, _, cont = self._upload(host)
+            count_kmers_global(table, codes, lengths, cont, k=c.kmer,
+                               overlap=c.kmer - 1)
+        return table
+
+    def group_features(self, table: torch.Tensor, reads1: str = "",
+                       reads2: str = "", interleaved: str = "") -> Features:
+        """The group pass against a global count table: per barcode, the
+        abundance histogram (each window's count looked up in ``table``)
+        and the TNF counts, in one stream. It reuses the sort-join's
+        group stream, whose dropped groups and mismatched pairs arrive as
+        seg -1 rows and fall out of both histograms (pangaea_tpu's table
+        pass leaves them out of its stream instead)."""
+        c = self.cfg
+        overlap = c.kmer - 1
+        ncols = num_canonical_kmers(c.tnf_kmer)
+        lut = rank_lut_tensor(c.tnf_kmer, self.device)
+        G = self.groups_per_chunk
+        _, events = self._group_events(reads1, reads2, interleaved)
+        names: List[str] = []
+        abd_dev, tnf_dev = [], []
+        hist, thist = self._zeros(G, c.vector_size), self._zeros(G, ncols)
+        for kind, payload in prefetch(self._host_tensors(events), depth=4):
+            if kind == "chunk":
+                g = len(payload)
+                names += list(payload)
+                abd_dev.append(hist[:g])
+                tnf_dev.append(thist[:g])
+                hist = self._zeros(G, c.vector_size)
+                thist = self._zeros(G, ncols)
+                continue
+            codes, lengths, seg, cont, *_ = self._upload(payload[1])
+            abundance_histogram(hist, table, codes, lengths, seg, cont,
+                                k=c.kmer, window=c.window_size,
+                                vector_size=c.vector_size, overlap=overlap)
+            tnf_histogram_segsum(thist, codes, lengths, seg, cont,
+                                 k=c.tnf_kmer, overlap=overlap, rank_lut=lut)
+        if not names:
+            return (np.array([], dtype=object),
+                    np.zeros((0, c.vector_size), np.int32),
+                    np.zeros((0, ncols), np.int32))
+        return (np.array(names), torch.cat(abd_dev).cpu().numpy(),
+                torch.cat(tnf_dev).cpu().numpy())
+
+    def _table_features(self, reads1: str, reads2: str,
+                        interleaved: str) -> Features:
+        t0 = time.perf_counter()
+        table = self.global_kmer_table(reads1, reads2, interleaved)
+        synchronize(self.device)
+        t1 = time.perf_counter()
+        out = self.group_features(table, reads1, reads2, interleaved)
+        del table
+        self.stats = {"path": "table", "global_s": t1 - t0,
+                      "group_s": time.perf_counter() - t1}
+        return out
+
+    # ---- jellyfish dump interchange ---------------------------------------
+
+    def export_jellyfish_dump(self, table: torch.Tensor, path: str) -> int:
+        """Write a global table as a jellyfish ``dump -c -t`` file
+        (``KMER\\tCOUNT`` lines, counts >= 1, ascending k-mer value) — the
+        interchange format of the reference's count_kmer
+        (src/feature.py:87,101-103). Returns the number of lines."""
+        t = table.cpu().numpy()
+        nz = np.flatnonzero(t)
+        strs = decode_kmers(nz, self.cfg.kmer)
+        with open(path, "w") as f:
+            f.writelines(f"{s.decode()}\t{int(n)}\n"
+                         for s, n in zip(strs, t[nz]))
+        return len(nz)
+
+    def import_jellyfish_dump(self, path: str) -> torch.Tensor:
+        """Load a jellyfish ``dump -c -t`` file (plain or .gz) into a
+        dense count table on the extractor's device — count_kmer's ``-g``
+        input (count_kmer.cpp:139-170). Each k-mer string is
+        re-canonicalized, so dumps of either strand convention load, and
+        the counts of k-mers that canonicalize alike add up. Use with
+        :meth:`group_features` to bin against externally computed global
+        counts (k <= 15)."""
+        k = self.cfg.kmer
+        table = make_global_table(k, "cpu").numpy()
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rt") as f:
+            fields = [line.split() for line in f]
+        bad = [m for m, _ in fields if len(m) != k]
+        if bad:
+            raise ValueError(f"dump k-mer '{bad[0]}' length {len(bad[0])} "
+                             f"!= k={k}")
+        if fields:
+            mers = "".join(m for m, _ in fields).upper().encode("ascii")
+            codes = encode_bases(mers).reshape(-1, k).astype(np.uint32)
+            v = np.zeros(len(fields), np.uint32)
+            for j in range(k):
+                v = (v << np.uint32(2)) | codes[:, j]
+            canon = np.minimum(v, revcomp_kmers_np(v, k)).astype(np.int64)
+            np.add.at(table, canon,
+                      np.array([int(n) for _, n in fields], np.int32))
+        return torch.from_numpy(table).to(self.device)
+
     # ---- artifacts --------------------------------------------------------
 
     @staticmethod
@@ -839,14 +998,23 @@ class FeatureExtractor:
 
     def _extract_inner(self, reads1: str, reads2: str,
                        interleaved: str) -> Features:
+        c = self.cfg
         if not (interleaved or (reads1 and reads2)):
             raise ValueError("reads must be specified")
-        if not self.sortjoin_eligible(reads1, reads2, interleaved):
-            raise NotImplementedError(
-                "the port's step 1 runs k <= 15 with hist_impl 'auto' or "
-                "'sortjoin'; k > 15 and the table/segsum paths are not "
-                "ported yet")
-        return self.group_features_sortjoin(reads1, reads2, interleaved)
+        if not 1 <= c.kmer <= 31:
+            raise ValueError(f"k={c.kmer}: the k-mer length must be 1..31 "
+                             "(the reference's uint64 k-mers)")
+        if c.hist_impl not in ("auto", "sortjoin", "scatter", "segsum"):
+            raise ValueError(f"unknown hist_impl {c.hist_impl!r}")
+        if self.sortjoin_eligible(reads1, reads2, interleaved):
+            return self.group_features_sortjoin(reads1, reads2, interleaved)
+        if c.kmer > 15:
+            # pangaea_tpu/features.py:1581-1590
+            raise ValueError(
+                f"k={c.kmer} > 15 requires the sort-join path: pass "
+                "hist_impl='auto'/'sortjoin' (the dense table only "
+                "exists for k <= 15)")
+        return self._table_features(reads1, reads2, interleaved)
 
     def extract_features(self, reads1: str = "", reads2: str = "",
                          interleaved: str = "", defer_save: bool = False

@@ -1,7 +1,8 @@
 """Fast host path: native C++ FASTQ reader + vectorized numpy grouping.
 
-Copied from pangaea_tpu.io.fast_packing (the group-event streams; the
-table path's ``native_seq_batches`` is not ported). Produces the same
+Copied from pangaea_tpu.io.fast_packing: the group-event streams, and
+``native_seq_batches``, the dense-table paths' global pass over every
+read. The group streams produce the same
 ("batch", PackedBatch) / ("chunk", names) event stream as
 io/packing.GroupPacker — the pure-Python version, kept as the behavioral
 oracle — with the hot loops in C++ (gzip + parse + encode, native/) and
@@ -35,6 +36,37 @@ from pangaea_tpu_torch.native import NativeFastqReader
 
 class OverlongReadError(RuntimeError):
     """A read longer than the row width reached the native stream."""
+
+
+def native_seq_batches(paths: List[str], max_read_len: int,
+                       reads_per_batch: int,
+                       min_qual_char: Optional[str] = None
+                       ) -> Iterator[PackedBatch]:
+    """Global-pass batches: every read of ``paths`` in file order, no
+    grouping (seg_ids and cont all 0), the last batch of each file padded
+    with length-0 rows. With ``min_qual_char`` the reader masks bases of
+    lower quality to code 4 (jellyfish --min-qual-char)."""
+    zero_cont = np.zeros(reads_per_batch, np.uint8)
+    zero_seg = np.zeros(reads_per_batch, np.int32)
+    for path in paths:
+        with NativeFastqReader(path, max_len=max_read_len,
+                               min_qual_char=min_qual_char) as rd:
+            while True:
+                out = rd.read(reads_per_batch)
+                if out is None:
+                    break
+                codes, lengths, _ = out
+                if int(lengths.max(initial=0)) > max_read_len:
+                    raise _overlong(max_read_len)
+                n = len(lengths)
+                if n < reads_per_batch:
+                    pad_c = np.full((reads_per_batch, max_read_len), 4,
+                                    np.uint8)
+                    pad_c[:n] = codes
+                    pad_l = np.zeros(reads_per_batch, np.int32)
+                    pad_l[:n] = lengths
+                    codes, lengths = pad_c, pad_l
+                yield PackedBatch(codes, lengths, zero_seg, zero_cont)
 
 
 def _group_pairs(bcs: np.ndarray, prev_last: bytes

@@ -1,4 +1,4 @@
-"""2-bit nucleotide encoding and canonical k-mer math (k <= 15).
+"""2-bit nucleotide encoding and canonical k-mer math (k <= 31).
 
 Port of pangaea_tpu/kernels/encode.py. Behavior contract (reference
 count_kmer.cpp / count_tnf.cpp):
@@ -11,10 +11,15 @@ count_kmer.cpp / count_tnf.cpp):
   (count_kmer.cpp:11-21); with this code table complement(x) = x ^ 2.
 - canonical k-mer = min(value, revcomp(value)) (count_kmer.cpp:86).
 
+- k <= 15 values are int32; 16 <= k <= 31 values are int64, the 2k-bit
+  value itself (the reference's uint64, count_kmer.cpp:79-86), where
+  pangaea_tpu carries a split (hi, lo) uint32 pair. Every int64 value
+  stays below 2^62, so torch's arithmetic right shift never sees a sign.
+
 Device functions take and return torch tensors on any device; the host
-helpers (``encode_bases``, ``kmer_positions_np``, ``canonical_order``,
-``canonical_rank_lut``, ``num_canonical_kmers``) are numpy. k > 15 (int64 keys) is queued in
-ROADMAP.md.
+helpers (``encode_bases``, ``decode_kmers``, ``kmer_positions_np``,
+``canonical_order``, ``canonical_rank_lut``, ``num_canonical_kmers``)
+are numpy.
 """
 
 from __future__ import annotations
@@ -44,13 +49,24 @@ def encode_bases(seq: bytes | np.ndarray) -> np.ndarray:
 
 
 def revcomp_kmers(vals: torch.Tensor, k: int) -> torch.Tensor:
-    """Reverse complement of packed k-mer values, k <= 16.
+    """Reverse complement of packed k-mer values, k <= 31.
 
-    The 32-bit bit-twiddle of count_kmer.cpp:11-21 (reverse all 2-bit
-    groups of the word, complement every group, shift the k meaningful
-    groups down), computed in int64 and masked to 32 bits: torch's uint32
-    op coverage is partial and its int32 right shift is arithmetic."""
-    assert k <= 16, "k > 16 needs the 64-bit path"
+    k <= 16: the 32-bit bit-twiddle of count_kmer.cpp:11-21 (reverse all
+    2-bit groups of the word, complement every group, shift the k
+    meaningful groups down), computed in int64 and masked to 32 bits:
+    torch's uint32 op coverage is partial and its int32 right shift is
+    arithmetic.
+
+    16 < k <= 31 (int64 values): rc(A.B) = rc(B).rc(A) for the first k-16
+    bases A (the high word) and the last 16 bases B (the low 32 bits), as
+    pangaea_tpu's revcomp_kmers_pair builds it: ``rc16(lo) << 2(k-16) |
+    rc_{k-16}(hi)``. Both parts are 32-bit twiddles and the result stays
+    below 2^62, so no step needs a 64-bit constant or a 64-bit bit
+    reverse through the sign bit."""
+    if k > 16:
+        assert k <= 31, f"k={k}: k-mer values hold at most 31 bases"
+        return ((revcomp_kmers(vals & _MASK32, 16) << (2 * (k - 16)))
+                | revcomp_kmers(vals >> 32, k - 16))
     x = vals.to(torch.int64) & _MASK32
     x = ((x >> 2) & 0x33333333) | ((x & 0x33333333) << 2)
     x = ((x >> 4) & 0x0F0F0F0F) | ((x & 0x0F0F0F0F) << 4)
@@ -85,13 +101,14 @@ def kmer_window_values(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     Args:
       codes: (R, L) uint8 base codes; 4 marks N / pad.
       lengths: (R,) int32 read lengths.
-      k: k-mer length (<= 15 so values fit int32).
+      k: k-mer length, 1..31 (int32 values up to 15, int64 beyond).
       win_skip: optional (R,) int32 — windows starting before this offset
         are invalid (continuation rows of split reads repeat bases the
         previous row already counted).
 
     Returns:
-      vals:  (R, L-k+1) int32 forward k-mer values (garbage where invalid).
+      vals:  (R, L-k+1) forward k-mer values, int32 for k <= 15 and int64
+        for k > 15 (garbage where invalid).
       valid: (R, L-k+1) bool — window is fully in-read and all-ACGT, which
         reproduces the reference's rolling reset on non-ACGT characters
         (count_kmer.cpp:73-78).
@@ -99,16 +116,22 @@ def kmer_window_values(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     R, L = codes.shape
     W = L - k + 1
     assert W >= 1, f"max_read_len {L} < k {k}"
-    assert k <= 15, f"k={k} unsupported: values must fit int32 (k <= 15)"
+    assert 1 <= k <= 31, f"k={k} unsupported: k-mer values hold 1..31 bases"
     c = codes.to(torch.int32)
     safe = torch.where(c < 4, c, torch.zeros_like(c))
-    acc = _assemble_windows(safe, k, W)
+    acc = _assemble_windows(safe.to(kmer_value_dtype(k)), k, W)
     valid = _window_validity(c, lengths, k, W, win_skip)
     return acc, valid
 
 
+def kmer_value_dtype(k: int) -> torch.dtype:
+    """int32 for k <= 15; the 2k bits of k = 16..31 need int64."""
+    return torch.int32 if k <= 15 else torch.int64
+
+
 def _assemble_windows(safe: torch.Tensor, k: int, W: int) -> torch.Tensor:
-    """Packed k-base window values (int32), by binary doubling: span-2^m
+    """Packed k-base window values in ``safe``'s dtype (int32, or int64
+    for k > 15: no intermediate exceeds 2k bits), by binary doubling: span-2^m
     packed values (a_m[i] packs bases i..i+2^m-1), then k's binary
     decomposition ORed together — ceil(log2 k) + popcount(k) shifted
     ORs instead of k."""
@@ -162,6 +185,19 @@ def kmer_positions_np(seq, k: int):
     ok = (nbad[k - 1:] - np.concatenate([[0], nbad[:W - 1]])) == 0
     pos = np.flatnonzero(ok)
     return acc[pos], pos
+
+
+_DECODE = np.frombuffer(b"ACTG", dtype=np.uint8)  # code 0,1,2,3
+
+
+def decode_kmers(vals: np.ndarray, k: int) -> np.ndarray:
+    """k-mer values -> ASCII strings (inverse of the 2-bit encode)."""
+    vals = np.asarray(vals, dtype=np.uint64)
+    chars = np.empty((len(vals), k), np.uint8)
+    for j in range(k):
+        chars[:, j] = _DECODE[(vals >> np.uint64(2 * (k - 1 - j)))
+                              & np.uint64(3)]
+    return chars.view(f"S{k}").ravel()
 
 
 @functools.lru_cache(maxsize=None)

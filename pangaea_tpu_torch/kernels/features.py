@@ -1,12 +1,17 @@
-"""Barcode-feature kernels of the sort-join path: k-mer keys, abundance
-bins, per-group histograms.
+"""Barcode-feature kernels: k-mer keys, abundance bins, per-group
+histograms, and the dense global count table.
 
-Port of the main-path functions of pangaea_tpu/kernels/features.py. The
-contract is the reference's per-barcode feature join
-(count_kmer.cpp:55-108, count_tnf.cpp:78-113):
+Port of pangaea_tpu/kernels/features.py. The contract is the reference's
+per-barcode feature join (count_kmer.cpp:55-108, count_tnf.cpp:78-113):
 
 1. every window of the read stream gets its canonical k-mer as a sort key
-   (the sentinel 4^k for invalid windows) — :func:`batch_kmer_keys`;
+   (the sentinel 4^k for invalid windows) — :func:`batch_kmer_keys`. Keys
+   are int32 for k <= 15 and int64 for k = 16..31: the 2k-bit value
+   ``(hi << 32) | lo`` of pangaea_tpu's split-word pair, whose sentinel
+   pair ``(4^(k-16), 0)`` packs to the same 4^k, and whose two-key
+   ``lax.sort(num_keys=2)`` order is the int64 order. Every join below
+   takes either key dtype; positions, weights and the CUDA scans stay
+   int32;
 2. one sort by key groups equal k-mers into runs; the run length IS the
    jellyfish global count (the stream holds every read once, dropped
    groups as seg -1 rows, unmasked); bin = count // window, kept when
@@ -25,6 +30,14 @@ Two variants of step 2 serve the rest of step 1:
   chunk of windows is sorted and run-length encoded on the device, only
   its unique (key, weight sum) runs are joined, and a per-run bin table
   maps every window back to its bin.
+
+The dense-table paths (``hist_impl='scatter'|'segsum'``, k <= 15) count
+every window into a (4^k,) int32 table first (:func:`count_kmers_global`,
+jellyfish's global pass) and look each window's count up in the group
+pass (:func:`abundance_histogram`). pangaea_tpu's 'segsum' is a TPU
+formulation of the same outputs (a compare-expand, 128-lane row gathers
+of the table and a cumsum segment sum); the port runs these table
+functions for both names.
 
 Where the TPU formulation worked around the TPU, the port takes the
 direct route with equal outputs: the restore of bins (or run ids) to
@@ -54,6 +67,53 @@ def kmer_key_sentinel(k: int) -> int:
     return 4 ** k
 
 
+# ---- dense-table paths (k <= 15) -----------------------------------------
+
+
+def make_global_table(k: int, device) -> torch.Tensor:
+    """Dense canonical-k-mer count table on ``device``: entry i holds the
+    global count of k-mer value i (0 = absent, as in a jellyfish dump of
+    counts >= 1). 4^15 int32 is 4 GiB."""
+    if k > 15:
+        raise ValueError(f"k={k}: the dense 4^k table exists for k <= 15 "
+                         "only; larger k runs the sort-join")
+    return torch.zeros(4 ** k, dtype=torch.int32, device=device)
+
+
+def count_kmers_global(table: torch.Tensor, codes: torch.Tensor,
+                       lengths: torch.Tensor, cont: torch.Tensor, *, k: int,
+                       overlap: int) -> torch.Tensor:
+    """Add one read batch's canonical k-mer counts to ``table``, in place.
+    pangaea_tpu drops invalid windows with an out-of-range scatter index
+    (``mode="drop"``), which torch checks as a device assert; the port
+    masks them out first and scatter-adds the rest (``index_add_`` on the
+    int32 table: integer adds commute, so the counts are exact)."""
+    skip = cont.to(torch.int32) * max(0, overlap - (k - 1))
+    vals, valid = kmer_window_values(codes, lengths, k, win_skip=skip)
+    idx = canonical_kmers(vals, k)[valid]
+    table.index_add_(0, idx, torch.ones_like(idx))
+    return table
+
+
+def abundance_histogram(hist: torch.Tensor, table: torch.Tensor,
+                        codes: torch.Tensor, lengths: torch.Tensor,
+                        seg_ids: torch.Tensor, cont: torch.Tensor, *, k: int,
+                        window: int, vector_size: int,
+                        overlap: int) -> torch.Tensor:
+    """Add one batch's per-group abundance counts to the (n_groups,
+    vector_size) int32 histogram, in place (count_kmer.cpp:86-96): each
+    valid window's global count is looked up in ``table``; bin = count //
+    window, kept if the count is > 0 and the bin < vector_size."""
+    skip = cont.to(torch.int32) * max(0, overlap - (k - 1))
+    vals, valid = kmer_window_values(codes, lengths, k, win_skip=skip)
+    canon = torch.where(valid, canonical_kmers(vals, k), 0)
+    cnt = torch.index_select(table, 0, canon.reshape(-1)).view_as(canon)
+    bins = torch.div(cnt, window, rounding_mode="floor")
+    binv = torch.where(valid & (cnt > 0) & (bins < vector_size), bins, -1)
+    return abundance_histogram_from_bins(hist, binv, seg_ids,
+                                         vector_size=vector_size)
+
+
 _SORTJOIN_PAD_QUANTUM = 1 << 20  # 1M
 
 
@@ -70,15 +130,15 @@ def sortjoin_pad_size(n: int) -> int:
 def batch_kmer_keys(codes: torch.Tensor, lengths: torch.Tensor,
                     cont: torch.Tensor, *, k: int, overlap: int
                     ) -> torch.Tensor:
-    """(R*W,) int32 canonical k-mer per window; invalid -> 4^k sentinel.
+    """(R*W,) canonical k-mer per window (int32, or int64 for k > 15:
+    ``encode.kmer_value_dtype``); invalid -> 4^k sentinel (2^62 at k = 31).
 
     ``cont`` (R,) marks continuation rows of split reads: their first
     max(0, overlap-(k-1)) windows were counted by the previous row."""
     skip = cont.to(torch.int32) * max(0, overlap - (k - 1))
     vals, valid = kmer_window_values(codes, lengths, k, win_skip=skip)
     canon = canonical_kmers(vals, k)
-    sentinel = torch.full_like(canon, kmer_key_sentinel(k))
-    return torch.where(valid, canon, sentinel).reshape(-1)
+    return torch.where(valid, canon, kmer_key_sentinel(k)).reshape(-1)
 
 
 def sortjoin_bins(keys: torch.Tensor, *, k: int, window: int,
@@ -86,14 +146,15 @@ def sortjoin_bins(keys: torch.Tensor, *, k: int, window: int,
     """Per-window abundance bin (count // window) in original order; -1
     for windows that contribute nothing (invalid, or bin >= vector_size).
 
-    keys: (N,) int32 from :func:`batch_kmer_keys`, padding entries equal
-    to the sentinel. One stable sort groups equal keys; each instance's
-    global count is the length of its run, from the run start and end
-    positions filled forward (cummax) and backward (cummin_reverse) —
-    the two CUDA scans of the main path. A permutation scatter puts each
-    bin back at its window's position, which satisfies the row-grouped
-    contract of pangaea_tpu's ``sortjoin_bins_rowgrouped`` (each row's
-    multiset of bins) and the exact order of its ``sortjoin_bins``."""
+    keys: (N,) from :func:`batch_kmer_keys` (int32, or int64 for k > 15),
+    padding entries equal to the sentinel. One stable sort groups equal
+    keys; each instance's global count is the length of its run, from
+    the run start and end positions filled forward (cummax) and backward
+    (cummin_reverse) — the two CUDA scans of the main path. A
+    permutation scatter puts each bin back at its window's position,
+    which satisfies the row-grouped contract of pangaea_tpu's
+    ``sortjoin_bins_rowgrouped`` (each row's multiset of bins) and the
+    exact order of its ``sortjoin_bins``."""
     n = keys.numel()
     sk, si = torch.sort(keys, stable=True)
     start, end = _run_flags(sk)
@@ -152,16 +213,14 @@ def _run_weight_sums(sw: torch.Tensor, start: torch.Tensor,
 def batch_kmer_keys_weighted(codes: torch.Tensor, lowq: torch.Tensor,
                              lengths: torch.Tensor, cont: torch.Tensor, *,
                              k: int, overlap: int):
-    """(keys, weights) per window, both (R*W,) int32: keys as
-    :func:`batch_kmer_keys` (unmasked), weight 1 iff the window is valid
-    AFTER quality masking (no invalid and no low-quality base among its k
-    bases — jellyfish --min-qual-char semantics). ``lowq``: (R, L)
+    """(keys, weights) per window, both (R*W,): keys as
+    :func:`batch_kmer_keys` (unmasked), int32 weight 1 iff the window is
+    valid AFTER quality masking (no invalid and no low-quality base among
+    its k bases — jellyfish --min-qual-char semantics). ``lowq``: (R, L)
     nonzero where quality < min_qual_char."""
     skip = cont.to(torch.int32) * max(0, overlap - (k - 1))
     vals, valid = kmer_window_values(codes, lengths, k, win_skip=skip)
-    canon = canonical_kmers(vals, k)
-    keys = torch.where(valid, canon, torch.full_like(canon,
-                                                     kmer_key_sentinel(k)))
+    keys = torch.where(valid, canonical_kmers(vals, k), kmer_key_sentinel(k))
     c = codes.to(torch.int32)
     masked = torch.where(lowq != 0, torch.full_like(c, 4), c)
     wvalid = _window_validity(masked, lengths, k, keys.shape[1], skip)
@@ -174,9 +233,9 @@ def sortjoin_bins_weighted(keys: torch.Tensor, weights: torch.Tensor, *,
     """Masked-global sort-join: per-window abundance bin in original
     order where the global count is the window's run WEIGHT SUM; -1 for
     invalid windows, keys absent from the masked global multiset (count
-    0), or bin >= vector_size. keys, weights: (N,) int32, padding entries
-    the sentinel with weight 0. Runs the three CUDA scans: the weight
-    cumsum and its two run-boundary fills."""
+    0), or bin >= vector_size. keys: (N,) int32 or int64, weights: (N,)
+    int32, padding entries the sentinel with weight 0. Runs the three
+    CUDA scans: the weight cumsum and its two run-boundary fills."""
     sk, si = torch.sort(keys, stable=True)
     sw = weights[si]
     start, end = _run_flags(sk)
@@ -237,21 +296,24 @@ def _spill_aggregate(keys: torch.Tensor, weights, k: int):
 
 
 def spill_aggregate(keys: torch.Tensor, *, k: int):
-    """Single-word unmasked chunk aggregation (see the note above):
-    (run_ids_stream, unique_keys, unique_weight_sums, n_runs, n_valid).
+    """Unmasked chunk aggregation (see the note above): (run_ids_stream,
+    unique_keys, unique_weight_sums, n_runs, n_valid). Keys of either
+    dtype: int64 keys (k > 15) stand for pangaea_tpu's split-word
+    ``spill_aggregate_pair``.
 
     ``run_ids_stream`` (N,) int32 is each window's run id in stream
-    order; the unique arrays hold the n_runs runs in sorted-key order,
-    the first n_valid of them real k-mers, the rest the sentinel run of
-    invalid windows (at most one). n_runs and n_valid are host ints."""
+    order; the unique arrays (keys in the keys' dtype) hold the n_runs
+    runs in sorted-key order, the first n_valid of them real k-mers, the
+    rest the sentinel run of invalid windows (at most one). n_runs and
+    n_valid are host ints."""
     return _spill_aggregate(keys, None, k)
 
 
 def spill_aggregate_weighted(keys: torch.Tensor, weights: torch.Tensor, *,
                              k: int):
-    """Single-word quality-masked chunk aggregation: as
-    :func:`spill_aggregate`, with run weight sums of the 0/1 window
-    weights."""
+    """Quality-masked chunk aggregation: as :func:`spill_aggregate`,
+    with run weight sums of the 0/1 window weights (for int64 keys,
+    pangaea_tpu's ``spill_aggregate_pair_weighted``)."""
     return _spill_aggregate(keys, weights, k)
 
 
@@ -280,7 +342,9 @@ def tnf_histogram_segsum(hist: torch.Tensor, codes: torch.Tensor,
                          cont: torch.Tensor, *, k: int, overlap: int,
                          rank_lut: torch.Tensor) -> torch.Tensor:
     """Add one batch's canonical k-mer (TNF) counts to the
-    (n_groups, num_cols) int32 histogram, in place. Column j counts the
+    (n_groups, num_cols) int32 histogram, in place: the port of both
+    pangaea_tpu's ``tnf_histogram`` (the table paths) and its
+    ``tnf_histogram_segsum`` (the sort-join). Column j counts the
     j-th smallest canonical k-mer (count_tnf.cpp:108 order), looked up
     through ``rank_lut`` = :func:`canonical_rank_lut` (k) on the device.
     Every valid window of a kept group counts (count_tnf.cpp:89-109)."""

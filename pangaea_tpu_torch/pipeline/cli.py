@@ -8,7 +8,8 @@ default steps are the same ``1,2,3,4``. Flags of paths this port does
 not run yet are accepted by the parser and rejected with an error:
 ``-m`` (metaphlan), bfloat16 matmuls, pangaea_tpu's host routing of
 small clustering fits, and a missing ``-c`` when step 3 runs (the
-automatic cluster count). k > 15 is rejected by step 1 itself.
+automatic cluster count). ``-k`` takes 1..31, the reference's uint64
+k-mers (k > 15 runs the sort-join on int64 keys).
 """
 
 from __future__ import annotations
@@ -90,6 +91,8 @@ def check_supported(p: argparse.ArgumentParser,
     for dest, ok in _UNPORTED:
         if getattr(args, dest) != ok:
             p.error(f"--{dest} is not supported by the PyTorch port yet")
+    if not 1 <= args.kmer <= 31:
+        p.error(f"-k {args.kmer}: the k-mer length must be 1..31")
     if args.clusters is None and "3" in args.steps.split(","):
         p.error("-c/--clusters is required (the automatic count is not "
                 "ported yet)")

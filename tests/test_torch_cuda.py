@@ -220,3 +220,73 @@ def test_kmer_mapper_on_card_equals_cpu(cuda, k):
     assert scan.cummax.launches == before + 1
     for a, b in zip(got, maps["cpu"].map_reads(reads)):
         np.testing.assert_array_equal(a, b)
+
+
+def _int64_keys(n, seed, k=21):
+    """Duplicated k = 21 keys (int64, above 2^32) with sentinels, and 0/1
+    weights."""
+    gen = torch.Generator().manual_seed(seed)
+    pool = torch.randint(0, 4 ** k, (5000,), generator=gen,
+                         dtype=torch.int64)
+    keys = pool[torch.randint(0, 5000, (n,), generator=gen)]
+    keys[torch.rand(n, generator=gen) < 0.1] = 4 ** k
+    w = (torch.rand(n, generator=gen) < 0.7).to(torch.int32)
+    w[keys == 4 ** k] = 0
+    return keys, w
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_int64_sortjoin_on_card_equals_cpu(cuda, weighted):
+    """k = 21 keys: the int64 sort feeds the same int32 scans (all three
+    on the weighted join, the two fills on the unweighted one)."""
+    from pangaea_tpu_torch.kernels import features as kf
+    keys, w = _int64_keys((1 << 20) + 321, 11 + weighted)
+    before = [fn.launches for fn in scan.WRAPPERS]
+    if weighted:
+        want = kf.sortjoin_bins_weighted(keys, w, k=21, window=2,
+                                         vector_size=60)
+        got = kf.sortjoin_bins_weighted(keys.to(cuda), w.to(cuda), k=21,
+                                        window=2, vector_size=60)
+    else:
+        want = kf.sortjoin_bins(keys, k=21, window=2, vector_size=60)
+        got = kf.sortjoin_bins(keys.to(cuda), k=21, window=2, vector_size=60)
+    assert [fn.launches - b for fn, b in zip(scan.WRAPPERS, before)] == \
+        ([1, 1, 1] if weighted else [1, 1, 0])
+    assert torch.equal(got.cpu(), want)
+
+
+def test_int64_spill_aggregate_on_card_equals_cpu(cuda):
+    from pangaea_tpu_torch.kernels import features as kf
+    keys, w = _int64_keys((1 << 20) + 77, 5)
+    want = kf.spill_aggregate_weighted(keys, w, k=21)
+    got = kf.spill_aggregate_weighted(keys.to(cuda), w.to(cuda), k=21)
+    assert got[3:] == want[3:]
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_table_kernels_on_card_equal_cpu(cuda):
+    """count_kmers_global (masked index_add_ into the int32 table) and
+    the table lookup of abundance_histogram, card vs CPU, at k = 15."""
+    from pangaea_tpu_torch.kernels import features as kf
+    gen = torch.Generator().manual_seed(3)
+    R, L, G, V = 4096, 152, 64, 400
+    codes = torch.randint(0, 4, (R, L), generator=gen, dtype=torch.uint8)
+    codes[torch.rand(R, L, generator=gen) < 0.01] = 4
+    lengths = torch.randint(0, L + 1, (R,), generator=gen, dtype=torch.int32)
+    cont = torch.zeros(R, dtype=torch.uint8)
+    seg = torch.sort(torch.randint(-1, G, (R,), generator=gen,
+                                   dtype=torch.int32)).values
+    out = {}
+    for dev in ("cpu", cuda):
+        args = [t.to(dev) for t in (codes, lengths, seg, cont)]
+        table = kf.make_global_table(15, dev)
+        for _ in range(3):   # counts above one window per bin
+            kf.count_kmers_global(table, args[0], args[1], args[3], k=15,
+                                  overlap=14)
+        hist = torch.zeros((G, V), dtype=torch.int32, device=dev)
+        kf.abundance_histogram(hist, table, *args, k=15, window=1,
+                               vector_size=V, overlap=14)
+        out[str(dev)] = (int(table.sum()), hist.cpu())
+    assert out["cuda"][0] == out["cpu"][0] > 0
+    assert torch.equal(out["cuda"][1], out["cpu"][1])

@@ -213,19 +213,18 @@ def test_csv_writer_matches_pandas_bytes(tmp_path):
 
 
 def test_unported_inputs_raise(sims, tmp_path):
-    """k > 15 and the table/segsum paths are not ported: they raise (paired
-    input and the past-the-cap spill run, tests/test_torch_masked.py and
-    tests/test_torch_spill.py)."""
-    fe = FeatureExtractor(FeatureConfig(kmer=16), str(tmp_path / "a"),
-                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        fe.extract_features(interleaved=sims["clean"])
-    fe = FeatureExtractor(FeatureConfig(hist_impl="scatter"),
-                          str(tmp_path / "b"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        fe.extract_features(reads1=sims["clean"], reads2=sims["clean"])
-    fe = FeatureExtractor(FeatureConfig(hist_impl="segsum"),
-                          str(tmp_path / "c"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        fe.extract_features(interleaved=sims["clean"])
-    assert not os.listdir(str(tmp_path / "a"))
+    """What pangaea_tpu cannot run either raises ValueError and writes
+    nothing: k outside 1..31, and a dense-table path (scatter or segsum)
+    at k > 15 (pangaea_tpu/features.py:1581-1590). k = 16..31 and the
+    table paths at k <= 15 run: tests/test_torch_largek.py and
+    tests/test_torch_table.py."""
+    cases = {"a": (dict(kmer=32), "1..31"),
+             "b": (dict(kmer=16, hist_impl="scatter"), "sort-join"),
+             "c": (dict(kmer=21, hist_impl="segsum"), "sort-join"),
+             "d": (dict(hist_impl="bogus"), "hist_impl")}
+    for tag, (cfg, match) in cases.items():
+        fe = FeatureExtractor(FeatureConfig(**cfg), str(tmp_path / tag),
+                              device="cpu")
+        with pytest.raises(ValueError, match=match):
+            fe.extract_features(reads1=sims["clean"], reads2=sims["clean"])
+        assert not os.listdir(str(tmp_path / tag))

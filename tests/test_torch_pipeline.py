@@ -117,10 +117,12 @@ def test_step3_writes_clusters_through_unique_temp(port_run, sim,  # noqa: F811
 
 
 def test_unported_requests_raise(tmp_path, sim):  # noqa: F811
+    """k = 32 is past the reference's uint64 k-mers: step 1 raises and
+    leaves no marker. The automatic cluster count is not ported."""
     reads, _ = sim
     cfg = _port_config(reads, str(tmp_path / "k")).replace(steps="1")
-    cfg.feature.kmer = 16
-    with pytest.raises(NotImplementedError):
+    cfg.feature.kmer = 32
+    with pytest.raises(ValueError, match="1..31"):
         Pipeline(cfg, device="cpu").run()
     assert not check_step_finished(cfg.output, "1")
     cfg = _port_config(reads, str(tmp_path / "b")).replace(steps="3")
