@@ -43,9 +43,12 @@ Phases, each fatal on failure:
 6. paired   — the same geometry simulated as -1/-2 files with errors and
               low-quality bases (seed 7); steps 1-3 on cuda from the CLI's
               -1/-2 flags through the native reader and the quality-masked
-              weighted join (every scan must launch, ARI >= 0.5); then
-              step 1 again with the 2^25 cap, the weighted aggregated
-              spill, byte-equal to the in-cap paired run.
+              weighted join (ARI >= 0.5), which launches the cumsum of the
+              run ids and neither fill scan (its run weight sums are an
+              int64 index_add_); then step 1 again with the 2^25 cap, the
+              weighted aggregated spill, byte-equal to the in-cap paired
+              run. The weighted join on 82 keys whose weights sum past
+              2^31 - 1 on cuda and on cpu gives the int64 count's bins.
 7. assembly — step 4 on cuda (steps="4") on phase 3's directory: the
               builtin bin assembler, the k-mer vote mapper (its run-length
               scan is the CUDA cummax, which must launch), low-abundance
@@ -65,7 +68,8 @@ Phases, each fatal on failure:
               scans; ARI >= 0.5); step 1 at k = 21 on the CPU byte-equal
               to the card's; the three spills of phase 5 at k = 21; paired
               step 1 at k = 21 in cap, then spilled (aggregated, device
-              store), byte-equal.
+              store), byte-equal; the 82-key weight-sum case on int64
+              keys.
    k31      — a small simulated file (32,000 reads, seed 8): step 1 at
               k = 31 (sentinel 2^62) on cuda and on the CPU, byte-equal.
    table    — hist_impl 'scatter' and 'segsum' at k = 15 (the 4 GiB
@@ -74,6 +78,20 @@ Phases, each fatal on failure:
    jellyfish — the k = 15 table of phase 3's FASTQ counted on the card,
               exported as a jellyfish dump, imported back (equal table),
               and group_features on it gives phase 3's matrices.
+9. auto-k   — step 3 without -c on cuda (steps="3") on a copy of phase
+              3's 2.vae/: the BIC cluster count at pangaea_tpu's depth
+              (kmax 100, 5 skeletons, 2 fits per feasible k — k below
+              the skeleton's point count, 970 fits when every skeleton
+              has more than 100 points — in a spawn pool), then
+              RPH-KMeans at that k; prints k, the skeleton sizes, the
+              seconds of the reductions on the card, of the fits (with
+              the worker count) and of the final fit, and gates the ARI
+              at 0.5 (no scan may launch). Then select_k_with_bic at kmax
+              20 and 2 skeletons with the reducer on cuda and on cpu:
+              whether the skeletons are bit-equal (else how many points
+              differ), the largest relative BIC difference, and the same
+              k (within 1 when the skeletons differ). Last, RPH-KMeans at
+              the chosen k timed on cuda and on cpu.
 
 Every path's launch counts are zeroed just before it and read just
 after it. After the phases, cummax and cummin_reverse are timed at the
@@ -388,6 +406,8 @@ KERNELS = (
 )
 ALL_SCANS = ("cummax", "cummin_reverse", "cumsum")
 FILL_SCANS = ("cummax", "cummin_reverse")
+# the weighted join: the run ids' cumsum; the fills must not launch
+WEIGHTED_SCANS = ("cumsum",)
 
 
 def smoke_dir() -> str:
@@ -454,11 +474,16 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in scan.WRAPPERS}
 
 
-def check_launched(what: str, launches: dict, names) -> None:
+def check_launched(what: str, launches: dict, names, absent=()) -> None:
+    """Every kernel in ``names`` launched, and none in ``absent``."""
     for name in names:
         if launches[name] <= 0:
             raise AssertionError(f"{what} never launched {name}: "
                                  f"{launches}")
+    for name in absent:
+        if launches[name] != 0:
+            raise AssertionError(f"{what} launched {name}, which its path "
+                                 f"does not run: {launches}")
 
 
 def log_stats(what: str, stats: dict) -> None:
@@ -475,7 +500,7 @@ def log_stats(what: str, stats: dict) -> None:
         f"key ranges")
 
 
-def run_pipeline(what: str, cfg, truth: dict, kernels) -> dict:
+def run_pipeline(what: str, cfg, truth: dict, kernels, absent=()) -> dict:
     """Steps 1-3 of ``cfg`` on cuda with the launch counts zeroed just
     before; checks the markers, the kernels launched, the latent, the
     bin FASTQs and the ARI vs truth."""
@@ -497,7 +522,7 @@ def run_pipeline(what: str, cfg, truth: dict, kernels) -> dict:
     for step in ("1", "2", "3"):
         if not check_step_finished(out, step):
             raise AssertionError(f"{what}: step {step} left no marker")
-    check_launched(what, launches, kernels)
+    check_launched(what, launches, kernels, absent)
     stats = dict(pipe.feature_extractor.stats)
     steps = {k: v.seconds for k, v in pipe.timer.stages.items()}
     clusters = read_clusters(os.path.join(out, "3.clustering",
@@ -584,7 +609,7 @@ def phase_exact(fq: str, feature_dir: str, what: str = "exact",
 # ---- phases 5-6 ------------------------------------------------------------
 
 def run_step1(what: str, inputs: dict, expect, kernels, spill: str,
-              store: str, **feature) -> dict:
+              store: str, absent=(), **feature) -> dict:
     """Step 1 alone on cuda with the launch counts zeroed just before;
     its matrices must equal ``expect`` (unless None) and its stats must
     name the path that ran: (spill, store) of the sort-join, or spill
@@ -610,7 +635,7 @@ def run_step1(what: str, inputs: dict, expect, kernels, spill: str,
            else (stats["spill"], stats["store"]))
     if ran != (spill, store):
         raise AssertionError(f"{what}: ran {ran}, expected {(spill, store)}")
-    check_launched(what, launches, kernels)
+    check_launched(what, launches, kernels, absent)
     if spill == "table" and any(launches.values()):
         raise AssertionError(f"{what}: the table path launched {launches}")
     if expect is not None:
@@ -652,14 +677,41 @@ def phase_paired(r1: str, r2: str, truth: dict) -> dict:
                               "-c", str(N_CLUSTERS), "-st", "1,2,3"])
     cli.check_supported(parser, args)
     run = run_pipeline("paired", cli.config_from_args(args), truth,
-                       ALL_SCANS)
+                       WEIGHTED_SCANS, FILL_SCANS)
     if run["stats"]["io"] != "native" or run["stats"]["spill"] != "none":
         raise AssertionError(f"paired: step 1 ran {run['stats']}")
     run["spill"] = run_step1(
         "paired-spill-agg", {"reads1": r1, "reads2": r2},
-        load_features(run["feature_dir"]), ALL_SCANS, "agg", "device",
-        sortjoin_max_windows=SPILL_CAP)
+        load_features(run["feature_dir"]), WEIGHTED_SCANS, "agg", "device",
+        FILL_SCANS, sortjoin_max_windows=SPILL_CAP)
+    check_wrap("paired", 15)
     return run
+
+
+def check_wrap(what: str, k: int) -> None:
+    """The weighted join on 82 keys weighted 50, 80 x 30,000,000 and 50
+    (2,400,000,100 in all, past 2^31 - 1) on cuda and on cpu: both give
+    the int64 numpy count's bins, 5 for the two keys of count 50."""
+    import numpy as np
+    import torch
+    from pangaea_tpu_torch.kernels.features import sortjoin_bins_weighted
+    dt = np.int64 if k > 15 else np.int32
+    keys = (np.arange(82) * 7919).astype(dt)
+    w = np.array([50] + [30_000_000] * 80 + [50], np.int32)
+    counts = w.astype(np.int64)   # every key once: its count is its weight
+    want = np.where(counts // 10 < 400, counts // 10, -1)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        got[dev] = sortjoin_bins_weighted(
+            torch.from_numpy(keys).to(dev), torch.from_numpy(w).to(dev),
+            k=k, window=10, vector_size=400).cpu().numpy()
+        if got[dev].dtype != np.int32 or not np.array_equal(got[dev], want):
+            raise AssertionError(f"{what}: weighted join past 2^31 - 1 on "
+                                 f"{dev} gave {got[dev][[0, 1, -1]]}, the "
+                                 f"int64 count {want[[0, 1, -1]]}")
+    log(f"{what}: weighted join of 82 keys weighing {int(counts.sum())} in "
+        f"all at k = {k}: bins {got['cuda'][[0, -1]].tolist()} on cuda = "
+        f"cpu = the int64 count's")
 
 
 # ---- phase 7 -------------------------------------------------------------
@@ -853,11 +905,14 @@ def phase_k21(fq: str, truth: dict, r1: str, r2: str) -> dict:
     if os.listdir(spill_dir):
         raise AssertionError(f"k21 disk spill left {os.listdir(spill_dir)}")
     paired = {"reads1": r1, "reads2": r2}
-    paths["k21-paired"] = run_step1("k21-paired", paired, None, ALL_SCANS,
-                                    "none", "device", **k)
+    paths["k21-paired"] = run_step1("k21-paired", paired, None,
+                                    WEIGHTED_SCANS, "none", "device",
+                                    FILL_SCANS, **k)
     paths["k21-paired-spill-agg"] = run_step1(
         "k21-paired-spill-agg", paired, paths["k21-paired"]["features"],
-        ALL_SCANS, "agg", "device", sortjoin_max_windows=SPILL_CAP, **k)
+        WEIGHTED_SCANS, "agg", "device", FILL_SCANS,
+        sortjoin_max_windows=SPILL_CAP, **k)
+    check_wrap("k21", LARGE_K)
     return {"run": run, "paths": paths}
 
 
@@ -927,6 +982,116 @@ def phase_jellyfish(fq: str, feature_dir: str) -> dict:
         f"3's {len(got[0])} barcodes; "
         + ", ".join(f"{k} {v:.3f} s" for k, v in t.items()))
     return t
+
+
+# ---- phase 9 -------------------------------------------------------------
+
+def compare_skeletons(cuda: list, cpu: list) -> tuple:
+    """(bit-equal, description) of two lists of (points, weights)
+    skeletons."""
+    import numpy as np
+    equal, notes = True, []
+    for s, ((pc, wc), (pp, wp)) in enumerate(zip(cuda, cpu)):
+        if pc.shape != pp.shape:
+            equal = False
+            notes.append(f"skeleton {s}: {len(pc)} points on cuda, "
+                         f"{len(pp)} on cpu")
+            continue
+        rows = int((~((pc == pp).all(1) & (wc == wp))).sum())
+        equal &= rows == 0
+        notes.append(f"skeleton {s}: {len(pc)} points, {rows} differ")
+    return equal, "; ".join(notes)
+
+
+def phase_autok(run: dict, fq: str, truth: dict) -> dict:
+    """Step 3 without -c on cuda on a copy of phase 3's 2.vae/, then the
+    BIC count at a smaller depth with the reducer on cuda and on cpu, then
+    RPH-KMeans at the chosen k on cuda and on cpu (times only)."""
+    import numpy as np
+    import torch
+    from pangaea_tpu_torch.cluster import (clustering_rph_kmeans,
+                                           select_k_with_bic)
+    from pangaea_tpu_torch.cluster.metrics import adjusted_rand_score
+    from pangaea_tpu_torch.config import PangaeaConfig
+    from pangaea_tpu_torch.kernels import scan
+    from pangaea_tpu_torch.pipeline import Pipeline, check_step_finished
+    from pangaea_tpu_torch.utils import cpu_count
+    out = os.path.join(smoke_dir(), "autok_run")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(os.path.join(run["out"], "2.vae"),
+                    os.path.join(out, "2.vae"))
+    cfg = PangaeaConfig(interleaved_reads=fq, output=out, steps="3")
+    pipe = Pipeline(cfg, device="cuda")
+    scan.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    check_launched("auto-k", launches, (), ALL_SCANS)
+    if not check_step_finished(out, "3"):
+        raise AssertionError("auto-k: step 3 left no marker")
+    st = pipe.cluster_stats
+    clusters = read_clusters(os.path.join(out, "3.clustering",
+                                          "clusters.tsv"))
+    labelled = [bc for bc in clusters if bc in truth]
+    ari = adjusted_rand_score([truth[bc] for bc in labelled],
+                              [clusters[bc] for bc in labelled])
+    k = st["k"]
+    sizes = [len(p) for p, _ in st["skeletons"]]
+    log(f"auto-k: step 3 without -c on cuda in {wall:.3f} s; k = {k} by "
+        f"{st['k_source']} ({len(set(clusters.values()))} clusters); "
+        f"{len(sizes)} reductions on the card {st['reduce_s']:.3f} s to "
+        f"skeletons of {sizes} points, {st['n_fits']} skeleton fits in "
+        f"{st['workers']} workers {st['fits_s']:.3f} s (os.cpu_count() "
+        f"{os.cpu_count()}), final RPH-KMeans {st['rph_s']:.3f} s; scan "
+        f"launches {launches}; ARI vs truth {ari:.6f} on {len(labelled)} "
+        f"labelled barcodes")
+    # two fits for every k in 4..100 below the skeleton's point count
+    n_fits = sum(2 * max(0, min(100, n - 1) - 3) for n in sizes)
+    if st["k_source"] != "bic" or st["n_fits"] != n_fits:
+        raise AssertionError(f"auto-k: expected {n_fits} BIC fits, got "
+                             f"{st['n_fits']} ({st['k_source']})")
+    if ari < ARI_GATE:
+        raise AssertionError(f"auto-k: ARI {ari} below {ARI_GATE} at k {k}")
+    latent = np.load(os.path.join(out, "2.vae", "latent.npz"))["arr_0"]
+    small = {}
+    for dev in ("cuda", "cpu"):
+        sst = {}
+        t0 = time.perf_counter()
+        sk, lists, _ = select_k_with_bic(
+            latent, kmax=20, kmin=4, ske_repeat=2, k_repeat=2,
+            random_state=0, device=dev, workers=cpu_count(), stats=sst)
+        small[dev] = (sk, np.asarray(lists), sst, time.perf_counter() - t0)
+    equal, notes = compare_skeletons(small["cuda"][2]["skeletons"],
+                                     small["cpu"][2]["skeletons"])
+    bc, bp = small["cuda"][1], small["cpu"][1]
+    if not np.array_equal(np.isinf(bc), np.isinf(bp)):
+        raise AssertionError("auto-k: -inf BIC entries differ cuda vs cpu")
+    fin = np.isfinite(bp)
+    rel = float(np.max(np.abs(bc[fin] - bp[fin]) / np.abs(bp[fin]),
+                       initial=0.0))
+    kc, kp = small["cuda"][0], small["cpu"][0]
+    tc, tp = small["cuda"][3], small["cpu"][3]
+    log(f"auto-k: kmax 20, 2 skeletons: k {kc} (reducer on cuda, {tc:.3f} "
+        f"s) vs {kp} (cpu, {tp:.3f} s); skeletons bit-equal: {equal} "
+        f"({notes}); largest relative BIC difference {rel:.3e}")
+    if (equal and kc != kp) or abs(kc - kp) > 1:
+        raise AssertionError(f"auto-k: k {kc} on cuda, {kp} on cpu "
+                             f"(skeletons bit-equal: {equal})")
+    rph = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        labels = clustering_rph_kmeans(latent, k, n_init=cfg.cluster.n_init,
+                                       random_state=cfg.model.seed,
+                                       device=dev)
+        rph[dev] = (time.perf_counter() - t0, labels)
+    agree = adjusted_rand_score(rph["cuda"][1], rph["cpu"][1])
+    log(f"auto-k: RPH-KMeans at k = {k} on the {latent.shape} latent: cuda "
+        f"{rph['cuda'][0]:.3f} s, cpu {rph['cpu'][0]:.3f} s; ARI cuda vs "
+        f"cpu labels {agree:.6f}")
+    return {"launches": launches, "k": k, "ari": ari}
 
 
 def mapper_cummax_record(boundary, launches: int) -> dict:
@@ -1028,6 +1193,7 @@ def main() -> int:
     tables = phase("table", phase_table, fq, run["feature_dir"], r1, r2,
                    paired["feature_dir"])
     phase("jellyfish", phase_jellyfish, fq, run["feature_dir"])
+    autok = phase("auto-k", phase_autok, run, fq, truth)
     k21_paths = {"k21": k21["run"]["launches"],
                  **{k: v["launches"] for k, v in k21["paths"].items()},
                  "k31": k31["launches"]}
@@ -1036,7 +1202,8 @@ def main() -> int:
                "paired": paired["launches"],
                "paired-spill-agg": paired["spill"]["launches"],
                "assembly": asm["launches"], **k21_paths,
-               **{k: v["launches"] for k, v in tables.items()}}
+               **{k: v["launches"] for k, v in tables.items()},
+               "auto-k": autok["launches"]}
     n_main = run["stats"]["sorted_windows"]
     n_paired = paired["stats"]["sorted_windows"]
     n_k21 = k21["run"]["stats"]["sorted_windows"]

@@ -1,6 +1,5 @@
 """External-tool invocation layer for the assembly stage (copied from
-pangaea_tpu.asm.tools, without ``require``/``ToolMissingError``, which
-only its unported driver and metaphlan modules call).
+pangaea_tpu.asm.tools).
 
 The reference shells out to megahit, bwa, samtools, seqtk, flye,
 quickmerge, jgi_summarize_bam_contig_depths, metaspades (SURVEY.md §2.4).
@@ -24,12 +23,22 @@ from typing import Dict, List, Optional
 log = logging.getLogger(__name__)
 
 
+class ToolMissingError(RuntimeError):
+    pass
+
+
 class ToolRunner:
     def __init__(self, log_dir: Optional[str] = None):
         self.log_dir = log_dir
 
     def available(self, tool: str) -> bool:
         return shutil.which(tool) is not None
+
+    def require(self, tool: str) -> None:
+        if not self.available(tool):
+            raise ToolMissingError(
+                f"external tool '{tool}' not found on PATH; install it or "
+                f"use the built-in fallback path")
 
     def run(self, command: List[str], log_name: Optional[str] = None,
             shell_cmd: Optional[str] = None, cwd: Optional[str] = None

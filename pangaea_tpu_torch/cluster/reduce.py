@@ -1,8 +1,8 @@
 """Random-projection point reduction ("skeleton" construction).
 
-Port of pangaea_tpu/cluster/reduce.py (the device path). Behavior
-contract (reference third_parties/rph_kmeans/rph_kmeans/
-point_reducer_base.py + point_reducer_py.py):
+Port of pangaea_tpu/cluster/reduce.py. Behavior contract (reference
+third_parties/rph_kmeans/rph_kmeans/point_reducer_base.py +
+point_reducer_py.py):
 
 - w: half the median distance of 1000 random point pairs
   (point_reducer_base.py:43-53) unless user-set.
@@ -11,8 +11,12 @@ point_reducer_base.py + point_reducer_py.py):
   (truncation toward zero); points sharing all 5 keys merge into their
   weighted mean, accumulating weight; repeat until the group count is
   <= max_point (2000) or max_iter.
-- the bucket-improvement modes (point_reducer_py.py:105-149) are not
-  implemented: Pangaea never enables them (src/clustering.py:17).
+- the bucket-improvement modes (point_reducer_py.py:105-149: ``radius``,
+  ``min_bkt_size``, ``min_center_dist``), which Pangaea never enables
+  (src/clustering.py:17), need per-bucket member lists: when one is
+  requested the reduction runs pangaea_tpu's host numpy path, with the
+  same draws, and only the final nearest-skeleton labels are computed on
+  the reducer's device.
 
 Buckets are identified as in the JAX package, by two 32-bit hashes of the
 five keys, and ordered by the unsigned (h1, h2) pair with ties by row id;
@@ -111,11 +115,20 @@ def _pow2_pad(n: int, floor: int = 256) -> int:
 
 
 class RPPointReducer:
-    """fit_transform(X) -> (reduced_X, weights, labels, n_iter)."""
+    """fit_transform(X) -> (reduced_X, weights, labels, n_iter).
+
+    ``bkt_improve`` selects a bucket-improvement mode (``radius`` with
+    ``radius_divide``, ``min_bkt_size`` with ``bkt_size_keepr`` < 1,
+    ``min_center_dist`` with ``center_dist_keepr`` < 1); any mode runs
+    the host numpy path."""
 
     def __init__(self, w: Optional[float] = None, max_point: int = 2000,
                  proj_num: int = 5, max_iter: int = 1000,
                  sample_dist_num: int = 1000,
+                 bkt_improve: Optional[str] = None,
+                 radius_divide: Optional[float] = None,
+                 bkt_size_keepr: float = 1.0,
+                 center_dist_keepr: float = 1.0,
                  rng: Optional[np.random.RandomState] = None,
                  device: DeviceLike = None):
         self.w = w
@@ -123,6 +136,10 @@ class RPPointReducer:
         self.proj_num = proj_num
         self.max_iter = max_iter
         self.sample_dist_num = sample_dist_num
+        self.bkt_improve = bkt_improve
+        self.radius2 = radius_divide ** 2 if radius_divide else None
+        self.bkt_size_keepr = bkt_size_keepr
+        self.center_dist_keepr = center_dist_keepr
         self.rng = rng or np.random.RandomState()
         self.device = resolve_device(device)
 
@@ -144,6 +161,8 @@ class RPPointReducer:
         w = self.get_w(X)
         if self.max_point >= n:
             return (X, np.ones(n, X.dtype), np.arange(n, dtype=np.uint32), 0)
+        if self.bkt_improve is not None:
+            return self._fit_transform_numpy(X, w)
         dev = self.device
         size = _pow2_pad(n)
         x = torch.zeros((size, dim), dtype=torch.float32, device=dev)
@@ -173,9 +192,98 @@ class RPPointReducer:
         weights = weight[:count].cpu().numpy()
         # final labels: nearest reduced point (downstream only uses the
         # skeleton and weights on Pangaea's path)
-        labels = _nearest_labels(torch.from_numpy(X).to(dev),
-                                 torch.from_numpy(reduced_x).to(dev))
-        return reduced_x, weights, labels.cpu().numpy().astype(np.uint32), it
+        return reduced_x, weights, self._labels(X, reduced_x), it
+
+    def _labels(self, X: np.ndarray, reduced: np.ndarray) -> np.ndarray:
+        dev = self.device
+        return _nearest_labels(torch.from_numpy(X).to(dev),
+                               torch.from_numpy(reduced).to(dev)
+                               ).cpu().numpy().astype(np.uint32)
+
+    # ---- numpy path (bucket-improvement modes) --------------------------
+
+    def _fit_transform_numpy(self, X: np.ndarray, w: float):
+        """Dict-bucketing reduction with bucket improvement
+        (point_reducer_py.py:47-149 contract)."""
+        n, dim = X.shape
+        reduced = X
+        weight = np.ones(n, np.float64)
+        it = 0
+        while it < self.max_iter and len(reduced) > self.max_point:
+            proj = self.rng.normal(0.0, 1.0 / w,
+                                   (dim, self.proj_num)).astype(np.float32)
+            b = self.rng.uniform(0, 1, self.proj_num).astype(np.float32)
+            keys = (reduced @ proj + b).astype(np.int32)
+            buckets = {}
+            for i in range(len(reduced)):
+                buckets.setdefault(keys[i].tobytes(), []).append(i)
+            groups = [v for v in buckets.values() if len(v) > 1]
+            orphans = [v[0] for v in buckets.values() if len(v) == 1]
+            if self.bkt_improve == "radius" and self.radius2 is not None:
+                groups, orphans = self._radius_improve(groups, orphans,
+                                                       reduced)
+            elif (self.bkt_improve == "min_bkt_size"
+                  and self.bkt_size_keepr < 1.0):
+                groups, orphans = self._keepr_improve(
+                    groups, orphans, [len(g) for g in groups],
+                    self.bkt_size_keepr)
+            elif (self.bkt_improve == "min_center_dist"
+                  and self.center_dist_keepr < 1.0):
+                meds = []
+                for g in groups:
+                    c = reduced[g].mean(axis=0)
+                    meds.append(float(np.median(
+                        np.square(reduced[g] - c).sum(axis=1))))
+                groups, orphans = self._keepr_improve(
+                    groups, orphans, meds, self.center_dist_keepr)
+            new_x, new_w = [], []
+            for g in groups:
+                wt = weight[g]
+                tot = wt.sum()
+                new_x.append((reduced[g] * wt[:, None]).sum(axis=0) / tot)
+                new_w.append(tot)
+            for o in orphans:
+                new_x.append(reduced[o])
+                new_w.append(weight[o])
+            reduced = np.asarray(new_x, dtype=np.float32)
+            weight = np.asarray(new_w, dtype=np.float64)
+            it += 1
+        return (reduced, weight.astype(np.float32), self._labels(X, reduced),
+                it)
+
+    @staticmethod
+    def _keepr_improve(groups, orphans, scores, keepr):
+        """min_bkt_size / min_center_dist: keep the keepr fraction with the
+        smallest score, orphan the rest (point_reducer_py.py:131-149)."""
+        order = np.argsort(scores)
+        keep_num = int(len(groups) * keepr)
+        kept = [groups[i] for i in order[:keep_num]]
+        for i in order[keep_num:]:
+            orphans.extend(groups[i])
+        return kept, orphans
+
+    def _radius_improve(self, groups, orphans, X):
+        """Greedy radius sub-clustering per bucket
+        (point_reducer_py.py:105-129)."""
+        new_groups = []
+        for bkt in groups:
+            pts = X[bkt]
+            centers = [0]
+            sub = [[0]]
+            for i in range(1, len(bkt)):
+                d2 = np.square(pts[centers] - pts[i]).sum(axis=1)
+                c = int(np.argmin(d2))
+                if d2[c] < self.radius2:
+                    sub[c].append(i)
+                else:
+                    centers.append(i)
+                    sub.append([i])
+            for g in sub:
+                if len(g) == 1:
+                    orphans.append(bkt[g[0]])
+                else:
+                    new_groups.append([bkt[r] for r in g])
+        return new_groups, orphans
 
 
 def _nearest_labels(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:

@@ -39,7 +39,12 @@ class RPHKMeans:
     def __init__(self, n_clusters: int = 8, n_init: int = 1,
                  w: Optional[float] = None, max_point: int = 2000,
                  proj_num: int = 5, max_iter: int = 1000,
-                 sample_dist_num: int = 1000, skeleton_n_init: int = 10,
+                 sample_dist_num: int = 1000,
+                 bkt_improve: Optional[str] = None,
+                 radius_divide: Optional[float] = None,
+                 bkt_size_keepr: float = 1.0,
+                 center_dist_keepr: float = 1.0,
+                 skeleton_n_init: int = 10,
                  final_max_iter: int = 300, final_tol: float = 1e-4,
                  random_state: Optional[int] = None, verbose: int = 0,
                  device: DeviceLike = None):
@@ -50,6 +55,10 @@ class RPHKMeans:
         self.proj_num = proj_num
         self.max_iter = max_iter
         self.sample_dist_num = sample_dist_num
+        self.bkt_improve = bkt_improve
+        self.radius_divide = radius_divide
+        self.bkt_size_keepr = bkt_size_keepr
+        self.center_dist_keepr = center_dist_keepr
         self.skeleton_n_init = skeleton_n_init
         self.final_max_iter = final_max_iter
         self.final_tol = final_tol
@@ -69,6 +78,10 @@ class RPHKMeans:
     def init_centers(self, X: np.ndarray):
         reducer = RPPointReducer(self.w, self.max_point, self.proj_num,
                                  self.max_iter, self.sample_dist_num,
+                                 bkt_improve=self.bkt_improve,
+                                 radius_divide=self.radius_divide,
+                                 bkt_size_keepr=self.bkt_size_keepr,
+                                 center_dist_keepr=self.center_dist_keepr,
                                  rng=self.rng, device=self.device)
         reduced_X, weight, labels, rp_iter = reducer.fit_transform(X)
         if len(reduced_X) < self.n_clusters:

@@ -20,11 +20,18 @@ this module reproduces that call in numpy on the host:
 Seeding mirrors sklearn's float32 arithmetic, so it picks sklearn's seed
 points; the Lloyd steps run in float64, so centers agree with sklearn's
 to float rounding.
+
+:func:`fit_skeletons` runs many such fits, each from its own seed, in a
+``spawn`` process pool. This module imports only numpy, so a worker
+loads neither torch nor CUDA.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import multiprocessing
+import os
+from concurrent.futures import ProcessPoolExecutor
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -139,3 +146,61 @@ def weighted_kmeans(X: np.ndarray, sample_weight: np.ndarray,
             best = (centers, labels, inertia)
     centers, labels, inertia = best
     return centers + mean, labels, inertia
+
+
+# ---- many fits in a process pool ------------------------------------------
+
+Job = Tuple[int, int, int]  # (skeleton index, n_clusters, random_state)
+# BLAS threads per worker: one, since the pool already fills the cores
+# and threads only contend on these small matmuls
+_BLAS_ENV = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+# the skeletons, set once in each pool worker by its initializer
+_worker_skeletons: Sequence[Tuple[np.ndarray, np.ndarray]] = ()
+
+
+def _init_worker(skeletons) -> None:
+    global _worker_skeletons
+    _worker_skeletons = skeletons
+
+
+def _fit(skeletons, job: Job) -> Tuple[np.ndarray, np.ndarray]:
+    s, k, seed = job
+    X, w = skeletons[s]
+    centers, labels, _ = weighted_kmeans(X, w, k, n_init=10,
+                                         random_state=seed)
+    return centers, labels
+
+
+def _fit_job(job: Job) -> Tuple[np.ndarray, np.ndarray]:
+    return _fit(_worker_skeletons, job)
+
+
+def fit_skeletons(skeletons: Sequence[Tuple[np.ndarray, np.ndarray]],
+                  jobs: Sequence[Job], workers: int
+                  ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """(centers, labels) of :func:`weighted_kmeans` (n_init 10, as
+    pangaea_tpu's sklearn call) for every job, in job order.
+    ``skeletons`` holds (points, weights) pairs; a job names one by
+    index, with its k and seed. ``workers`` <= 1 runs the fits inline;
+    more runs them in a ``spawn`` pool of that many processes. Each fit
+    depends on its inputs and seed alone, so the results are the same
+    with any worker count. A failed worker raises."""
+    if workers <= 1 or len(jobs) <= 1:
+        return [_fit(skeletons, j) for j in jobs]
+    ctx = multiprocessing.get_context("spawn")
+    saved = {v: os.environ.get(v) for v in _BLAS_ENV}
+    # a spawned worker reads its BLAS thread count from the environment
+    # it starts with; the pool starts its workers while the jobs go in
+    os.environ.update({v: "1" for v in _BLAS_ENV})
+    try:
+        with ProcessPoolExecutor(min(workers, len(jobs)), mp_context=ctx,
+                                 initializer=_init_worker,
+                                 initargs=(skeletons,)) as pool:
+            futures = [pool.submit(_fit_job, j) for j in jobs]
+            return [f.result() for f in futures]
+    finally:
+        for v, old in saved.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old

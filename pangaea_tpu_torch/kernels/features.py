@@ -24,7 +24,8 @@ Two variants of step 2 serve the rest of step 1:
 
 - the quality-masked (weighted) join of paired input —
   :func:`batch_kmer_keys_weighted`, :func:`sortjoin_bins_weighted`: the
-  global count is a run's weight sum, filled with the CUDA cumsum;
+  global count is a run's int64 weight sum, added up by run id (the run
+  ids come from the CUDA cumsum of the run starts);
 - the past-the-cap spill — :func:`spill_aggregate`,
   :func:`spill_aggregate_weighted`, :func:`map_run_bins`: each in-cap
   chunk of windows is sorted and run-length encoded on the device, only
@@ -58,8 +59,6 @@ from pangaea_tpu_torch.kernels.encode import (_window_validity,
                                               canonical_kmers,
                                               canonical_rank_lut,
                                               kmer_window_values)
-
-_INT32_MAX = 2 ** 31 - 1
 
 
 def kmer_key_sentinel(k: int) -> int:
@@ -182,17 +181,21 @@ def _run_flags(sk: torch.Tensor):
     return start, end
 
 
-def _run_weight_sums(sw: torch.Tensor, start: torch.Tensor,
-                     end: torch.Tensor) -> torch.Tensor:
-    """Per element, the weight sum of its run: the inclusive weight
-    cumsum at the run's end minus the exclusive one at its start, filled
-    forward (cummax) and backward (cummin_reverse) — both monotone since
-    weights are >= 0."""
-    cw = scan.cumsum(sw)
-    excl = cw - sw
-    run_before = scan.cummax(torch.where(start, excl, 0))
-    run_total = scan.cummin_reverse(torch.where(end, cw, _INT32_MAX))
-    return run_total - run_before
+def _run_ids(start: torch.Tensor) -> torch.Tensor:
+    """(N,) int32 run id of every sorted element: the CUDA cumsum of the
+    run-start flags, minus one."""
+    return scan.cumsum(start.to(torch.int32)) - 1
+
+
+def _run_weight_sums(sw: torch.Tensor, run_id: torch.Tensor) -> torch.Tensor:
+    """(n_runs,) int64 weight sum of every run: one int64 ``index_add_``
+    of the sorted weights by run id. pangaea_tpu fills the run totals from
+    an int32 weight cumsum, which wraps once the weights joined in one
+    call sum past 2^31 - 1 and then gives every run before the wrap a
+    count <= 0; int64 sums cannot wrap."""
+    n_runs = int(run_id[-1]) + 1 if run_id.numel() else 0
+    sums = torch.zeros(n_runs, dtype=torch.int64, device=sw.device)
+    return sums.index_add_(0, run_id, sw.to(torch.int64))
 
 
 # ---- quality-masked (weighted) sort-join ----------------------------------
@@ -234,16 +237,19 @@ def sortjoin_bins_weighted(keys: torch.Tensor, weights: torch.Tensor, *,
     order where the global count is the window's run WEIGHT SUM; -1 for
     invalid windows, keys absent from the masked global multiset (count
     0), or bin >= vector_size. keys: (N,) int32 or int64, weights: (N,)
-    int32, padding entries the sentinel with weight 0. Runs the three
-    CUDA scans: the weight cumsum and its two run-boundary fills."""
+    int32, padding entries the sentinel with weight 0. Runs one CUDA
+    scan, the cumsum of the run starts that gives the run ids; the run
+    weight sums are int64 (:func:`_run_weight_sums`), so the bins stay
+    exact past a total weight of 2^31 - 1. The output is int32."""
     sk, si = torch.sort(keys, stable=True)
-    sw = weights[si]
-    start, end = _run_flags(sk)
-    count = _run_weight_sums(sw, start, end)
-    del sw, start, end
+    start, _ = _run_flags(sk)
+    run_id = _run_ids(start)
+    del start
+    count = _run_weight_sums(weights[si], run_id)[run_id]
+    del run_id
     bins = torch.div(count, window, rounding_mode="floor")
     ok = (sk < kmer_key_sentinel(k)) & (count > 0) & (bins < vector_size)
-    binv = torch.where(ok, bins, -1)
+    binv = torch.where(ok, bins, -1).to(torch.int32)
     del sk, count, bins, ok
     out = torch.empty_like(binv)
     out[si] = binv
@@ -275,21 +281,23 @@ def _spill_aggregate(keys: torch.Tensor, weights, k: int):
     n = keys.numel()
     sk, si = torch.sort(keys, stable=True)
     start, end = _run_flags(sk)
+    run_id = _run_ids(start)
+    starts = torch.nonzero(start).squeeze(1)
     if weights is None:
         pos = torch.arange(n, dtype=torch.int32, device=keys.device)
         run_start = scan.cummax(torch.where(start, pos, 0))
         run_end = scan.cummin_reverse(torch.where(end, pos, n))
-        wsum = run_end - run_start + 1
+        uniq_w = (run_end - run_start + 1)[starts]
         del pos, run_start, run_end
     else:
-        wsum = _run_weight_sums(weights[si], start, end)
-    run_id = scan.cumsum(start.to(torch.int32)) - 1
+        # int32 like the stores' rows: one chunk's run sum is at most its
+        # window count (spill_agg_windows, 2^25 by default), far below
+        # 2^31; phase B sums the chunks' runs in int64
+        uniq_w = _run_weight_sums(weights[si], run_id).to(torch.int32)
     run_ids_stream = torch.empty_like(run_id)
     run_ids_stream[si] = run_id
     del run_id, si
-    starts = torch.nonzero(start).squeeze(1)
     uniq = sk[starts]
-    uniq_w = wsum[starts]
     n_runs = starts.numel()
     n_valid = int((uniq < kmer_key_sentinel(k)).sum())
     return run_ids_stream, uniq, uniq_w, n_runs, n_valid

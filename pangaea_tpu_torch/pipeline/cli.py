@@ -1,15 +1,18 @@
 """CLI mirroring the reference's argparse surface (src/pangaea.py:129-175).
 
 Usage: ``python -m pangaea_tpu_torch.pipeline.cli -i reads.fq.gz -o out -c 30``
+(without ``-c``, step 3 picks the cluster count: metaphlan's Shannon
+diversity with ``-m DB`` when metaphlan is on PATH, else BIC on the
+latent, with its skeleton fits in ``-t`` host processes; 0, the default,
+means every CPU the process may run on).
 
 The flags are pangaea_tpu's (pipeline/cli.py:17-71) plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain PyTorch versions), and the
 default steps are the same ``1,2,3,4``. Flags of paths this port does
 not run yet are accepted by the parser and rejected with an error:
-``-m`` (metaphlan), bfloat16 matmuls, pangaea_tpu's host routing of
-small clustering fits, and a missing ``-c`` when step 3 runs (the
-automatic cluster count). ``-k`` takes 1..31, the reference's uint64
-k-mers (k > 15 runs the sort-join on int64 keys).
+bfloat16 matmuls and pangaea_tpu's host routing of small clustering
+fits. ``-k`` takes 1..31, the reference's uint64 k-mers (k > 15 runs the
+sort-join on int64 keys).
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ from pangaea_tpu_torch.config import (AssemblyConfig, ClusterConfig,
 _UNPORTED = (
     ("matmul_dtype", "float32"),
     ("cluster_device_min_elems", None),
-    ("metaphlan_db", ""),
 )
 
 
@@ -62,8 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="VAE matmul precision (the port runs float32 only)")
     # others
     p.add_argument("-c", "--clusters", type=int, default=None,
-                   help="number of clusters (required: the automatic count "
-                        "is not ported yet)")
+                   help="number of clusters; without it, metaphlan "
+                        "diversity (-m) or BIC on the latent picks it")
     p.add_argument("--cluster_device_min_elems", type=int, default=None,
                    help="not ported: step 3 runs on --device")
     p.add_argument("--spill_store",
@@ -93,9 +95,6 @@ def check_supported(p: argparse.ArgumentParser,
             p.error(f"--{dest} is not supported by the PyTorch port yet")
     if not 1 <= args.kmer <= 31:
         p.error(f"-k {args.kmer}: the k-mer length must be 1..31")
-    if args.clusters is None and "3" in args.steps.split(","):
-        p.error("-c/--clusters is required (the automatic count is not "
-                "ported yet)")
 
 
 def config_from_args(args: argparse.Namespace) -> PangaeaConfig:

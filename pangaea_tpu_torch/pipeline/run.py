@@ -10,15 +10,18 @@ mirror the reference exactly:
 
 Each step is skipped when its marker exists (check_steps_finish,
 src/pangaea.py:23-35) and can be re-run from its artifacts. Every step
-runs on the pipeline's device. Not ported yet (ROADMAP.md): the automatic
-cluster count (metaphlan diversity / BIC), which raises
-NotImplementedError.
+runs on the pipeline's device. Without ``-c``, step 3 picks the cluster
+count as pangaea_tpu does: from metaphlan's Shannon diversity when
+metaphlan is on PATH and a database is given, else by BIC on the latent
+(the skeleton reductions on the device, the skeleton fits in a pool of
+``threads`` host processes).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import time
 from collections import defaultdict
 
 import numpy as np
@@ -56,6 +59,8 @@ class Pipeline:
         self._fe_pending = None
         # the step-1 extractor of the last run (window counts, phases)
         self.feature_extractor = None
+        # step 3's cluster count, where it came from, and its seconds
+        self.cluster_stats: dict = {}
         # step 4's sub-stage seconds, counts and backends (asm/final.py)
         self.assembly_stats: dict = {}
         self.timer = StageTimer()
@@ -107,26 +112,54 @@ class Pipeline:
 
     # ---- step 3 -----------------------------------------------------------
 
+    def _estimate_k(self) -> int:
+        """Diversity-based auto-k (src/clustering.py:93-103): metaphlan
+        shannon diversity * 8. Falls back to BIC-based selection on the
+        latent when metaphlan is unavailable (pangaea_tpu's choice: the
+        reference hard-fails without its >25 GB DB)."""
+        from pangaea_tpu_torch.utils import cpu_count, which
+        cfg = self.cfg
+        stats = self.cluster_stats
+        if which("metaphlan") and cfg.metaphlan_db:
+            from pangaea_tpu_torch.asm.diversity import metaphlan_shannon
+            reads = cfg.reads1 or cfg.interleaved_reads
+            shannon = metaphlan_shannon(reads, cfg.metaphlan_db,
+                                        self.cluster_dir)
+            k = int(cfg.cluster.diversity_multiplier * shannon)
+            stats.update(k_source="metaphlan", shannon=shannon)
+            log.info("estimated num_classes: %d", k)
+            return k
+        log.info("metaphlan unavailable; selecting k by BIC on the latent")
+        from pangaea_tpu_torch.cluster import select_k_with_bic
+        emb = np.load(os.path.join(self.model_dir, "latent.npz"))["arr_0"]
+        stats["k_source"] = "bic"
+        k, _, _ = select_k_with_bic(emb, kmax=100, kmin=4, ske_repeat=5,
+                                    k_repeat=2, random_state=0,
+                                    device=self.device,
+                                    workers=cfg.threads or cpu_count(),
+                                    stats=stats)
+        log.info("estimated num_classes: %d", k)
+        return k
+
     def step3_cluster(self):
         from pangaea_tpu_torch.cluster import clustering_rph_kmeans
         cfg = self.cfg
         os.makedirs(self.cluster_dir, exist_ok=True)
         out_tsv = os.path.join(self.cluster_dir, "clusters.tsv")
         out_npz = os.path.join(self.cluster_dir, "clusters.npz")
+        self.cluster_stats = {}
         if not os.path.isfile(out_tsv):
-            k = cfg.cluster.n_clusters
-            if k is None:
-                raise NotImplementedError(
-                    "the automatic cluster count (metaphlan diversity or "
-                    "BIC on the latent) is not ported yet: pass -c K")
             emb = np.load(os.path.join(self.model_dir, "latent.npz"))["arr_0"]
             bcs = np.load(os.path.join(self.model_dir, "barcodes.npz"),
                           allow_pickle=True)["arr_0"]
+            k = cfg.cluster.n_clusters or self._estimate_k()
             # seeded: the reference's rph_kmeans draws from the GLOBAL
             # np.random that init_all seeds to 2021 (utils.py:84-88)
+            t0 = time.perf_counter()
             clusters = clustering_rph_kmeans(
                 emb, k, n_init=cfg.cluster.n_init,
                 random_state=cfg.model.seed, device=self.device)
+            self.cluster_stats.update(k=k, rph_s=time.perf_counter() - t0)
             np.savez(out_npz, clusters)
             c2b = defaultdict(list)
             for i in range(len(bcs)):

@@ -5,6 +5,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import shutil
 import tempfile
 from typing import Iterator, Optional, Union
 
@@ -79,3 +80,17 @@ def synchronize(device: Optional[torch.device]) -> None:
     """Wait for the device's queued work (no-op on the CPU)."""
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def which(tool: str) -> Optional[str]:
+    """The path of ``tool`` on PATH, or None."""
+    return shutil.which(tool)
+
+
+def cpu_count() -> int:
+    """CPUs this process may run on: ``os.cpu_count()`` less any CPUs its
+    affinity mask excludes (what Python 3.13's ``os.process_cpu_count``
+    returns)."""
+    if hasattr(os, "sched_getaffinity"):
+        return len(os.sched_getaffinity(0))
+    return os.cpu_count() or 1

@@ -156,8 +156,9 @@ def _weighted_keys(n, seed):
 
 @pytest.mark.parametrize("n", [1 << 16, (1 << 20) + 12345])
 def test_sortjoin_bins_weighted_on_card_equals_cpu(cuda, n):
-    """The weighted join runs all three scans on the card; its bins equal
-    the plain run's."""
+    """The weighted join runs one scan on the card, the cumsum of the run
+    ids (its run weight sums are an int64 index_add_); its bins equal the
+    plain run's."""
     from pangaea_tpu_torch.kernels.features import sortjoin_bins_weighted
     keys, w = _weighted_keys(n, n)
     want = sortjoin_bins_weighted(keys, w, k=7, window=2, vector_size=60)
@@ -165,7 +166,7 @@ def test_sortjoin_bins_weighted_on_card_equals_cpu(cuda, n):
     got = sortjoin_bins_weighted(keys.to(cuda), w.to(cuda), k=7, window=2,
                                  vector_size=60)
     assert [fn.launches - b for fn, b in zip(scan.WRAPPERS, before)] == \
-        [1, 1, 1]
+        [0, 0, 1]
     assert torch.equal(got.cpu(), want)
 
 
@@ -177,7 +178,7 @@ def test_spill_aggregate_on_card_equals_cpu(cuda, weighted):
         want = kf.spill_aggregate_weighted(keys, w, k=7)
         before = scan.cumsum.launches
         got = kf.spill_aggregate_weighted(keys.to(cuda), w.to(cuda), k=7)
-        assert scan.cumsum.launches == before + 2
+        assert scan.cumsum.launches == before + 1
     else:
         want = kf.spill_aggregate(keys, k=7)
         before = scan.cumsum.launches
@@ -190,6 +191,20 @@ def test_spill_aggregate_on_card_equals_cpu(cuda, weighted):
     table = torch.randint(-1, 40, (n_runs,), dtype=torch.int32)
     assert torch.equal(kf.map_run_bins(table.to(cuda), ids).cpu(),
                        kf.map_run_bins(table, want[0]))
+
+
+@pytest.mark.parametrize("k", [15, 21])
+def test_weighted_join_past_int32_total_on_card(cuda, k):
+    """82 keys whose weights sum to 2,400,000,100: the card gives the
+    CPU's bins, 5 for the two keys of weight 50."""
+    from pangaea_tpu_torch.kernels.features import sortjoin_bins_weighted
+    keys = torch.arange(82, dtype=torch.int64 if k > 15 else torch.int32)
+    w = torch.tensor([50] + [30_000_000] * 80 + [50], dtype=torch.int32)
+    want = sortjoin_bins_weighted(keys, w, k=k, window=10, vector_size=400)
+    got = sortjoin_bins_weighted(keys.to(cuda), w.to(cuda), k=k, window=10,
+                                 vector_size=400)
+    assert (int(want[0]), int(want[-1])) == (5, 5)
+    assert torch.equal(got.cpu(), want)
 
 
 def _contigs(seed):
@@ -237,8 +252,9 @@ def _int64_keys(n, seed, k=21):
 
 @pytest.mark.parametrize("weighted", [False, True])
 def test_int64_sortjoin_on_card_equals_cpu(cuda, weighted):
-    """k = 21 keys: the int64 sort feeds the same int32 scans (all three
-    on the weighted join, the two fills on the unweighted one)."""
+    """k = 21 keys: the int64 sort feeds the same int32 scans (the run
+    ids' cumsum on the weighted join, the two fills on the unweighted
+    one)."""
     from pangaea_tpu_torch.kernels import features as kf
     keys, w = _int64_keys((1 << 20) + 321, 11 + weighted)
     before = [fn.launches for fn in scan.WRAPPERS]
@@ -251,7 +267,7 @@ def test_int64_sortjoin_on_card_equals_cpu(cuda, weighted):
         want = kf.sortjoin_bins(keys, k=21, window=2, vector_size=60)
         got = kf.sortjoin_bins(keys.to(cuda), k=21, window=2, vector_size=60)
     assert [fn.launches - b for fn, b in zip(scan.WRAPPERS, before)] == \
-        ([1, 1, 1] if weighted else [1, 1, 0])
+        ([0, 0, 1] if weighted else [1, 1, 0])
     assert torch.equal(got.cpu(), want)
 
 

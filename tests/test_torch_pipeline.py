@@ -4,7 +4,7 @@ The port's Pipeline(device="cpu") must bin the simulated 4-species reads
 as well as pangaea_tpu does (ARI vs truth > 0.95, the JAX package's gate),
 agree with pangaea_tpu's own clusters.tsv on the same input (cross-ARI
 >= 0.95), honour the resume markers, and the package must load neither
-JAX nor pangaea_tpu.
+JAX, nor pangaea_tpu, nor scikit-learn.
 """
 
 import json
@@ -118,18 +118,19 @@ def test_step3_writes_clusters_through_unique_temp(port_run, sim,  # noqa: F811
 
 def test_unported_requests_raise(tmp_path, sim):  # noqa: F811
     """k = 32 is past the reference's uint64 k-mers: step 1 raises and
-    leaves no marker. The automatic cluster count is not ported."""
+    leaves no marker. bfloat16 VAE matmuls are not ported: step 2
+    raises and leaves no marker."""
     reads, _ = sim
     cfg = _port_config(reads, str(tmp_path / "k")).replace(steps="1")
     cfg.feature.kmer = 32
     with pytest.raises(ValueError, match="1..31"):
         Pipeline(cfg, device="cpu").run()
     assert not check_step_finished(cfg.output, "1")
-    cfg = _port_config(reads, str(tmp_path / "b")).replace(steps="3")
-    cfg.cluster.n_clusters = None
-    os.makedirs(os.path.join(cfg.output, "2.vae"))
+    cfg = _port_config(reads, str(tmp_path / "b")).replace(steps="1,2")
+    cfg.model.matmul_dtype = "bfloat16"
     with pytest.raises(NotImplementedError):
-        Pipeline(cfg, device="cpu").step3_cluster()
+        Pipeline(cfg, device="cpu").run()
+    assert not check_step_finished(cfg.output, "2")
 
 
 def test_default_device_is_the_card():
@@ -145,8 +146,8 @@ def test_default_device_is_the_card():
 @pytest.mark.parametrize("argv", [
     ["-c", "4", "--matmul_dtype", "bfloat16"],
     ["-c", "4", "--cluster_device_min_elems", "10"],
-    ["-c", "4", "-m", "db"],   # metaphlan: the automatic count
-    [],  # no -c: the automatic count is not ported
+    ["-m", "db", "--matmul_dtype", "bfloat16"],   # -m and no -c parse
+    ["--cluster_device_min_elems", "10"],
 ])
 def test_cli_rejects_unported_flags(argv, tmp_path):
     with pytest.raises(SystemExit) as e:
@@ -200,10 +201,15 @@ def test_port_imports_no_jax_and_no_pangaea_tpu():
         "for m in ('native', 'io.fast_packing', 'features', 'io.bam',\n"
         "          'asm.tools', 'asm.fasta', 'asm.naive', 'asm.unmapped',\n"
         "          'asm.mapper', 'asm.bin_assembly', 'asm.merge_olc',\n"
-        "          'asm.circular_logic', 'asm.circularize', 'asm.final'):\n"
+        "          'asm.circular_logic', 'asm.circularize', 'asm.final',\n"
+        "          'asm.diversity', 'cluster.k_selection', 'pipeline.run'):\n"
         "    assert 'pangaea_tpu_torch.' + m in sys.modules, m\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'pangaea_tpu' or m.startswith('pangaea_tpu.')]\n"
+        "from pangaea_tpu_torch.pipeline.run import Pipeline\n"
+        "from pangaea_tpu_torch.cluster import select_k_with_bic\n"
+        "assert callable(Pipeline._estimate_k)\n"
+        "assert callable(select_k_with_bic)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'pangaea_tpu', 'sklearn')]\n"
         "print(len([m for m in sys.modules\n"
         "           if m.startswith('pangaea_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -192,3 +192,94 @@ def test_spill_store_disk_needs_a_directory(reads, tmp_path):
     with pytest.raises(ValueError, match="spill_dir"):
         _port(tmp_path, "nodir", reads["interleaved"],
               sortjoin_max_windows=CAP, spill_store="disk")
+
+
+# ---- weight sums past 2^31 - 1 ---------------------------------------------
+#
+# pangaea_tpu forms run weight sums from an int32 cumsum, which wraps once
+# the weights joined in one call pass 2^31 - 1, so it cannot be the oracle
+# here: an int64 numpy count is.
+
+def _oracle_bins(keys, weights, k, window=10, vector_size=400):
+    keys = np.asarray(keys, np.int64)
+    uk, inv = np.unique(keys, return_inverse=True)
+    tot = np.zeros(len(uk), np.int64)
+    np.add.at(tot, inv, np.asarray(weights, np.int64))
+    cnt = tot[inv]
+    b = cnt // window
+    ok = (keys < 4 ** k) & (cnt > 0) & (b < vector_size)
+    return np.where(ok, b, -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("k", [15, 21])
+def test_weighted_join_past_int32_total(k):
+    """82 keys weighted 50, 80 x 30,000,000 and 50 (total 2,400,000,100):
+    the two keys of count 50 get bin 5."""
+    dt = np.int64 if k > 15 else np.int32
+    keys = (np.arange(82) * 7919).astype(dt)
+    w = np.array([50] + [30_000_000] * 80 + [50], np.int32)
+    got = tkf.sortjoin_bins_weighted(torch.from_numpy(keys),
+                                     torch.from_numpy(w), k=k, window=10,
+                                     vector_size=400)
+    assert got.dtype == torch.int32
+    assert (int(got[0]), int(got[-1])) == (5, 5)
+    np.testing.assert_array_equal(got.numpy(), _oracle_bins(keys, w, k))
+
+
+def _heavy_groups(seed, n_chunks=3, n=300):
+    """Chunks of unique sorted keys (overlapping across chunks) with int32
+    run weights: a third heavy (2^28..2^30), the rest light, so any key
+    range or disk bucket holds more than 2^31 - 1 in all."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_chunks):
+        keys = np.sort(rng.choice(1000, n, replace=False)).astype(np.int32)
+        heavy = rng.rand(n) < 0.35
+        w = np.where(heavy, rng.randint(2 ** 28, 2 ** 30, n),
+                     rng.randint(1, 200, n)).astype(np.int32)
+        out.append((keys, w))
+    return out
+
+
+def test_chunked_sortjoin_weighted_past_int32_total(tmp_path):
+    parts = _heavy_groups(41)
+    fe = FeatureExtractor(FeatureConfig(sortjoin_max_windows=200),
+                          str(tmp_path), device="cpu")
+    got = fe._chunked_sortjoin_bins(parts, weighted=True)
+    assert fe._last_ranges >= 4
+    keys = np.concatenate([p[0] for p in parts])
+    w = np.concatenate([p[1] for p in parts])
+    assert w.astype(np.int64).sum() > 10 * 2 ** 31
+    want = _oracle_bins(keys, w, 15)
+    assert (want >= 0).sum() > 100
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("store,cap", [("device", 1 << 20), ("device", 200),
+                                       ("disk", 1 << 20)])
+def test_spill_finalize_bins_past_int32_total(tmp_path, store, cap):
+    """Phase B of the weighted spill on synthetic chunks: the device join
+    (within the cap), the host ranged join (past it) and the disk
+    buckets give the int64 count's bins."""
+    parts = _heavy_groups(43)
+    cfg = FeatureConfig(sortjoin_max_windows=cap, spill_store=store,
+                        spill_dir=str(tmp_path / "sp") if store == "disk"
+                        else None)
+    agg = tfeat._SpillAgg(FeatureExtractor(cfg, str(tmp_path), device="cpu"),
+                          weighted=True, per_batch=1)
+    for c, (keys, w) in enumerate(parts):
+        g = {"n_windows": len(keys), "n_runs": len(keys),
+             "n_valid": len(keys), "bins_table": None}
+        if store == "disk":
+            agg._bucket_append(keys, w, c)
+        else:
+            g.update(uniq=torch.from_numpy(keys), uw=torch.from_numpy(w))
+        agg.groups.append(g)
+    agg.finalize_bins()
+    got = [g["bins_table"] for g in agg.groups]
+    got = np.concatenate([np.load(t) if isinstance(t, str) else t.numpy()
+                          for t in got])
+    agg.cleanup()
+    want = _oracle_bins(np.concatenate([p[0] for p in parts]),
+                        np.concatenate([p[1] for p in parts]), 15)
+    np.testing.assert_array_equal(got, want)
