@@ -21,12 +21,14 @@ Phases, each fatal on failure:
    repeat   — each of the six variants 50 times on one input of 2^24+13
               elements, every result bit-equal (a memory-ordering fault
               in the look-back shows only now and then).
-   simulate — the FASTQs of phases 3, 6 and 8 (k31), made from their
-              seeds in three spawned processes at once.
+   simulate — the FASTQs of phases 3, 6, 8 (k31) and 10 (raw stLFR),
+              made from their seeds in four spawned processes at once.
 3. pipeline — the port's steps 1-3 (FASTQ -> features -> VAE latent ->
               clusters.tsv -> per-bin reads) on cuda, at the bench.py
               geometry of 800k reads (8 species x 200 kb, 10k barcodes x
-              40 pairs, seed 7). Every kernel launch count is zeroed just
+              40 pairs, seed 7); step 2 on the fused loop (pangaea_tpu's
+              default), whose evals, last epoch and phase_times are
+              printed. Every kernel launch count is zeroed just
               before and read just after; each kernel of the path must
               have launched. ARI vs the simulator's truth must reach 0.5.
 4. exact    — step 1 again with device="cpu" (the plain versions) on the
@@ -92,13 +94,39 @@ Phases, each fatal on failure:
               differ), the largest relative BIC difference, and the same
               k (within 1 when the skeletons differ). Last, RPH-KMeans at
               the chosen k timed on cuda and on cpu.
+10. driver  — driver.main on cuda from raw reads (--skip-external):
+              -s 10x on phase 6's pairs, steps 1-3: the sorted FASTQ holds
+              the input's records (as a multiset), its tags sorted and
+              the unbarcoded last, GNU sort's bytes equal the native
+              sort's, ARI >= 0.5; -s stlfr -w on a raw stLFR simulation
+              (8 species x 200 kb, 10,000 partitions x 40 pairs, 1,536
+              whitelist barcodes, seed 7), steps 1-3, ARI >= 0.5 against
+              its translated barcodes; -s tellseq -I, step 0 only, on
+              R1/R2/I1 written from phase 3's first 100,000 pairs with
+              18-bp barcodes (every 1000th 17 bp, dropped): the record
+              count and every BX tag; hybrid -s short -l, step 0 only,
+              long reads cut to 10 kb from phase 7's final_asm.fa and
+              phase 6's first 100,000 pairs: the builtin mapper on cuda
+              (its cummax must launch; no bwa there), >= 90 % of the
+              pairs barcoded, tags sorted. Prints the seconds of each
+              step-0 sub-stage and each step.
+    step2   — steps 2-3 on phase 3's features with the fused loop, the
+              stepwise loop (PANGAEA_TRAIN_LOOP=stepwise) and bfloat16
+              matmuls: fused and stepwise stop at the same epoch with val
+              histories bit-equal (else within 1e-4 relative) and
+              cross-ARI >= 0.95; bfloat16 reaches ARI >= 0.5 and
+              cross-ARI >= 0.95 against float32. Prints evals, last
+              epoch, phase_times and the step seconds of each, and the
+              seconds of the first torch.optim.Adam() in a fresh process
+              (a one-time cost the process's first step 2 pays).
 
 Every path's launch counts are zeroed just before it and read just
 after it. After the phases, cummax and cummin_reverse are timed at the
 main path's scan length, cumsum at the paired path's, all three again at
 the k = 21 path's, and cummax at the mapper's flat (65,536 x 244) length
-on a real run-boundary array, beside torch.cummax along its rows; cumsum
-is also timed at 2^28 in phase 2. Every time is the median CUDA-event time of one call. A JSON line gives copy_ms, the time of one device-to-device
+on a real run-boundary array, beside torch.cummax along its rows, and
+at the hybrid mapper's first batch likewise; cumsum is also timed at
+2^28 in phase 2. Every time is the median CUDA-event time of one call. A JSON line gives copy_ms, the time of one device-to-device
 copy of the same int32 bytes at each measured length (the
 achievable-bandwidth yardstick beside the bound). The line before the
 last is one JSON object with every kernel (name, route, source, the TPU
@@ -447,15 +475,43 @@ def sim_data(name: str, sim: dict, paired: bool) -> tuple:
     return paths, res.barcode_species
 
 
-def simulate_all(specs: list) -> list:
-    """sim_data of every (name, sim, paired) in ``specs`` at once, one
-    spawned process each: the simulator is single-threaded host Python
-    and gzip, and nothing else runs meanwhile."""
+def stlfr_data(name: str, sim: dict) -> tuple:
+    """Raw stLFR R1/R2 and whitelist made by simulate_stlfr_raw from the
+    seed in ``sim``; reused like sim_data's. Returns ((r1, r2, wl),
+    translated barcode -> species)."""
+    from pangaea_tpu_torch.io.sim import simulate_stlfr_raw
+    d = os.path.join(smoke_dir(), name)
+    os.makedirs(d, exist_ok=True)
+    paths = [os.path.join(d, f) for f in ("r1.fq", "r2.fq", "wl.txt")]
+    meta = os.path.join(d, "truth.json")
+    if os.path.exists(meta):
+        with open(meta) as f:
+            saved = json.load(f)
+        if saved["sim"] == sim and all(map(os.path.exists, paths)):
+            log(f"{name}: reusing {paths}")
+            return paths, saved["virtual_species"]
+    t0 = time.perf_counter()
+    tmps = [p + ".tmp" for p in paths]
+    res = simulate_stlfr_raw(*tmps, **sim)
+    for tmp, path in zip(tmps, paths):
+        os.replace(tmp, path)
+    with open(meta, "w") as f:
+        json.dump({"sim": sim, "virtual_species": res.virtual_species}, f)
+    log(f"{name}: simulated {2 * res.n_pairs} raw stLFR reads "
+        f"({res.n_unassigned} pairs unassigned) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return paths, res.virtual_species
+
+
+def simulate_all(jobs: list) -> list:
+    """Every (function, args) in ``jobs`` at once (sim_data, stlfr_data),
+    one spawned process each: the simulators are single-threaded host
+    Python and gzip, and nothing else runs meanwhile."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(len(specs), mp_context=ctx) as pool:
-        futures = [pool.submit(sim_data, *spec) for spec in specs]
+    with ProcessPoolExecutor(len(jobs), mp_context=ctx) as pool:
+        futures = [pool.submit(fn, *args) for fn, args in jobs]
         return [f.result() for f in futures]
 
 
@@ -467,6 +523,29 @@ def read_clusters(tsv: str) -> dict:
             for bc in bcs.split(","):
                 out[bc] = int(cid)
     return out
+
+
+def cluster_ari(out: str, truth: dict) -> tuple:
+    """(ARI of ``out``'s clusters.tsv vs truth, labelled barcodes,
+    barcode -> cluster)."""
+    from pangaea_tpu_torch.cluster.metrics import adjusted_rand_score
+    clusters = read_clusters(os.path.join(out, "3.clustering",
+                                          "clusters.tsv"))
+    labelled = [bc for bc in clusters if bc in truth]
+    ari = adjusted_rand_score([truth[bc] for bc in labelled],
+                              [clusters[bc] for bc in labelled])
+    return ari, len(labelled), clusters
+
+
+def train_line(stats: dict) -> str:
+    """Step 2's stop epoch, evals and the fused loop's phase_times."""
+    hist = stats["val_history"]
+    pt = stats["phase_times"]
+    times = ({k: (round(v, 3) if isinstance(v, float) else v)
+              for k, v in pt.items()} if pt else "stepwise")
+    return (f"{len(hist)} evals, last at epoch {hist[-1][0] if hist else 0}"
+            f"; set-up {stats['setup_s']:.3f} s, fit {stats['fit_s']:.3f} s,"
+            f" latent {stats['latent_s']:.3f} s; phase_times {times}")
 
 
 def launch_counts() -> dict:
@@ -506,7 +585,6 @@ def run_pipeline(what: str, cfg, truth: dict, kernels, absent=()) -> dict:
     bin FASTQs and the ARI vs truth."""
     import numpy as np
     import torch
-    from pangaea_tpu_torch.cluster.metrics import adjusted_rand_score
     from pangaea_tpu_torch.kernels import scan
     from pangaea_tpu_torch.pipeline import Pipeline, check_step_finished
     out = cfg.output
@@ -525,20 +603,17 @@ def run_pipeline(what: str, cfg, truth: dict, kernels, absent=()) -> dict:
     check_launched(what, launches, kernels, absent)
     stats = dict(pipe.feature_extractor.stats)
     steps = {k: v.seconds for k, v in pipe.timer.stages.items()}
-    clusters = read_clusters(os.path.join(out, "3.clustering",
-                                          "clusters.tsv"))
-    labelled = [bc for bc in clusters if bc in truth]
-    ari = adjusted_rand_score([truth[bc] for bc in labelled],
-                              [clusters[bc] for bc in labelled])
+    ari, n_labelled, clusters = cluster_ari(out, truth)
     bins = sorted(f for f in os.listdir(os.path.join(out, "3.clustering"))
                   if f.endswith(".fq"))
     latent = np.load(os.path.join(out, "2.vae", "latent.npz"))["arr_0"]
     log(f"{what}: steps 1-3 on cuda in {wall:.3f} s: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items()))
     log_stats(what, stats)
+    log(f"{what}: step 2 (fused loop): {train_line(pipe.train_stats)}")
     log(f"{what}: scan launches {launches}; {len(clusters)} barcodes "
         f"clustered, latent {latent.shape}, {len(bins)} bin FASTQs; "
-        f"ARI vs truth {ari:.6f} on {len(labelled)} labelled barcodes")
+        f"ARI vs truth {ari:.6f} on {n_labelled} labelled barcodes")
     if not (latent.ndim == 2 and latent.shape[1] == cfg.model.latent_dim
             and np.isfinite(latent).all()):
         raise AssertionError(f"{what}: bad latent {latent.shape}")
@@ -1033,11 +1108,7 @@ def phase_autok(run: dict, fq: str, truth: dict) -> dict:
     if not check_step_finished(out, "3"):
         raise AssertionError("auto-k: step 3 left no marker")
     st = pipe.cluster_stats
-    clusters = read_clusters(os.path.join(out, "3.clustering",
-                                          "clusters.tsv"))
-    labelled = [bc for bc in clusters if bc in truth]
-    ari = adjusted_rand_score([truth[bc] for bc in labelled],
-                              [clusters[bc] for bc in labelled])
+    ari, n_labelled, clusters = cluster_ari(out, truth)
     k = st["k"]
     sizes = [len(p) for p, _ in st["skeletons"]]
     log(f"auto-k: step 3 without -c on cuda in {wall:.3f} s; k = {k} by "
@@ -1046,7 +1117,7 @@ def phase_autok(run: dict, fq: str, truth: dict) -> dict:
         f"skeletons of {sizes} points, {st['n_fits']} skeleton fits in "
         f"{st['workers']} workers {st['fits_s']:.3f} s (os.cpu_count() "
         f"{os.cpu_count()}), final RPH-KMeans {st['rph_s']:.3f} s; scan "
-        f"launches {launches}; ARI vs truth {ari:.6f} on {len(labelled)} "
+        f"launches {launches}; ARI vs truth {ari:.6f} on {n_labelled} "
         f"labelled barcodes")
     # two fits for every k in 4..100 below the skeleton's point count
     n_fits = sum(2 * max(0, min(100, n - 1) - 3) for n in sizes)
@@ -1094,7 +1165,358 @@ def phase_autok(run: dict, fq: str, truth: dict) -> dict:
     return {"launches": launches, "k": k, "ari": ari}
 
 
-def mapper_cummax_record(boundary, launches: int) -> dict:
+# ---- phase 10 ------------------------------------------------------------
+
+# raw stLFR at the smoke's geometry: 10,000 partitions x 40 pairs of 150 bp
+STLFR_SIM = dict(n_species=8, genome_len=200_000, n_partitions=10_000,
+                 pairs_per_partition=40, read_len=150, n_wl=1536, seed=7)
+TELLSEQ_PAIRS = 100_000   # phase 3's first pairs behind the Tell-Seq files
+TELLSEQ_SHORT_EVERY = 1_000   # every 1000th pair: a 17-bp barcode, dropped
+HYBRID_PAIRS = 100_000    # phase 6's first pairs, mapped to the long reads
+LONG_READ_LEN = 10_000    # long reads cut from phase 7's final_asm.fa
+BARCODED_GATE = 0.9       # share of hybrid pairs that must get a barcode
+# fused against stepwise step 2: the same kernels on the same inputs in
+# the same order; the tolerance only admits float sums that some kernel
+# reorders between runs
+HISTORY_RTOL = 1e-4
+CROSS_ARI_GATE = 0.95
+
+
+def iter_records(path: str):
+    """4-line FASTQ records of a plain or gzipped file, as bytes."""
+    import gzip
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        it = iter(f)
+        for head in it:
+            yield head + next(it) + next(it) + next(it)
+
+
+def sorted_tags(what: str, sorted_fq: str) -> list:
+    """The sort key of every pair of a barcode-sorted FASTQ (its BX:Z
+    token, ``~~~`` when absent), checked non-decreasing in byte order
+    with the unbarcoded last."""
+    import re
+    bx = re.compile(rb"BX:Z:[^ \t\r\n]*")
+    tags = []
+    for i, rec in enumerate(iter_records(sorted_fq)):
+        if i % 2 == 0:
+            m = bx.search(rec.split(b"\n", 1)[0])
+            tags.append(m.group(0) if m else b"~~~")
+    if any(a > b for a, b in zip(tags, tags[1:])):
+        raise AssertionError(f"{what}: the sorted FASTQ's tags decrease")
+    return tags
+
+
+def run_driver(what: str, argv: list, kernels, absent=()) -> dict:
+    """driver.main(argv + ["--device", "cuda"]) with the launch counts
+    zeroed just before and checked just after; the driver's log handlers
+    are taken off again."""
+    import logging
+    import torch
+    from pangaea_tpu_torch.kernels import scan
+    from pangaea_tpu_torch.pipeline import driver
+    root = logging.getLogger()
+    before = list(root.handlers)
+    scan.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = driver.main(argv + ["--device", "cuda"])
+    finally:
+        for h in root.handlers[:]:
+            if h not in before:
+                root.removeHandler(h)
+                h.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    check_launched(what, launches, kernels, absent)
+    out = argv[argv.index("-o") + 1]
+    steps = {k: round(v.seconds, 3)
+             for k, v in res["pipeline"].timer.stages.items()}
+    step0 = {k: round(v, 3) for k, v in res["step0_s"].items()}
+    log(f"{what}: driver on cuda in {wall:.3f} s; step 0 {step0}; steps "
+        f"{steps}; scan launches {launches}")
+    if res["pipeline"].feature_extractor is not None:
+        log_stats(what, res["pipeline"].feature_extractor.stats)
+    return {"out": out, "wall_s": wall, "launches": launches,
+            "pipeline": res["pipeline"],
+            "sorted": os.path.join(out, "0_preprocess_reads",
+                                   "interleaved_link_reads.sorted.fastq")}
+
+
+def driver_10x(r1: str, r2: str, truth: dict) -> dict:
+    """-s 10x on phase 6's paired FASTQs: the sorted FASTQ holds the
+    input's records (a multiset), its tags sorted, unbarcoded last; GNU
+    sort gives the native sort's bytes; steps 1-3 reach the ARI gate."""
+    import filecmp
+    from pangaea_tpu_torch.io.fastq import barcode_sort_interleaved
+    from pangaea_tpu_torch.io.preprocess import interleave
+    out = os.path.join(smoke_dir(), "driver_10x")
+    shutil.rmtree(out, ignore_errors=True)
+    run = run_driver("driver-10x", [
+        "-s", "10x", "-1", r1, "-2", r2, "-o", out, "-c", str(N_CLUSTERS),
+        "-t", str(os.cpu_count() or 1), "-st", "1,2,3", "--skip-external"],
+        FILL_SCANS)
+    want = sorted(hash(r) for p in (r1, r2) for r in iter_records(p))
+    got = sorted(hash(r) for r in iter_records(run["sorted"]))
+    if got != want:
+        raise AssertionError(f"driver-10x: the sorted FASTQ holds "
+                             f"{len(got)} records, not the input's "
+                             f"{len(want)}")
+    tags = sorted_tags("driver-10x", run["sorted"])
+    tmp = os.path.join(smoke_dir(), "driver_10x_gnu")
+    t0 = time.perf_counter()
+    interleave(r1, r2, tmp + ".in")
+    t1 = time.perf_counter()
+    barcode_sort_interleaved(tmp + ".in", tmp + ".fq", backend="gnu")
+    t2 = time.perf_counter()
+    same = filecmp.cmp(tmp + ".fq", run["sorted"], shallow=False)
+    for f in (tmp + ".in", tmp + ".fq"):
+        os.remove(f)
+    if not same:
+        raise AssertionError("driver-10x: GNU sort's bytes differ from the "
+                             "native sort's")
+    ari, n_labelled, _ = cluster_ari(out, truth)
+    log(f"driver-10x: {len(got)} records sorted ({tags.count(b'~~~')} "
+        f"unbarcoded pairs last), native = GNU sort bytes (GNU sort "
+        f"{t2 - t1:.3f} s after a {t1 - t0:.3f} s interleave); step 2 "
+        f"{train_line(run['pipeline'].train_stats)}; ARI vs truth "
+        f"{ari:.6f} on {n_labelled} labelled barcodes")
+    if ari < ARI_GATE:
+        raise AssertionError(f"driver-10x: ARI {ari} below {ARI_GATE}")
+    return run
+
+
+def driver_stlfr(paths: list, truth: dict) -> dict:
+    """-s stlfr -w on the raw stLFR simulation: steps 1-3 reach the ARI
+    gate against the simulator's translated barcodes."""
+    r1, r2, wl = paths
+    out = os.path.join(smoke_dir(), "driver_stlfr")
+    shutil.rmtree(out, ignore_errors=True)
+    run = run_driver("driver-stlfr", [
+        "-s", "stlfr", "-1", r1, "-2", r2, "-w", wl, "-o", out,
+        "-c", str(N_CLUSTERS), "-t", str(os.cpu_count() or 1),
+        "-st", "1,2,3", "--skip-external"], FILL_SCANS)
+    tags = sorted_tags("driver-stlfr", run["sorted"])
+    ari, n_labelled, clusters = cluster_ari(out, truth)
+    log(f"driver-stlfr: {2 * len(tags)} records sorted "
+        f"({tags.count(b'~~~')} unbarcoded pairs last), {len(clusters)} "
+        f"barcodes clustered; step 2 "
+        f"{train_line(run['pipeline'].train_stats)}; ARI vs truth "
+        f"{ari:.6f} on {n_labelled} labelled barcodes")
+    if ari < ARI_GATE:
+        raise AssertionError(f"driver-stlfr: ARI {ari} below {ARI_GATE}")
+    return run
+
+
+def driver_tellseq(fq: str) -> dict:
+    """-s tellseq -I, step 0 only, on R1/R2/I1 written from phase 3's
+    first TELLSEQ_PAIRS pairs with 18-bp barcodes (the 16-bp barcode +
+    "GT"; every TELLSEQ_SHORT_EVERY-th a 17-bp one, which step 0 drops):
+    the record count and every record's BX tag."""
+    d = os.path.join(smoke_dir(), "tellseq_in")
+    os.makedirs(d, exist_ok=True)
+    paths = [os.path.join(d, f) for f in ("r1.fq", "r2.fq", "i1.fq")]
+    expect = {}
+    it = iter_records(fq)
+    with open(paths[0], "wb") as f1, open(paths[1], "wb") as f2, \
+            open(paths[2], "wb") as fi:
+        for i in range(TELLSEQ_PAIRS):
+            a, b = next(it), next(it)
+            head = a.split(b"\n", 1)[0][1:].decode()
+            name, bc = head.split("\t")[0], head.split("BX:Z:")[1][:16]
+            bc18 = bc[:17] if i % TELLSEQ_SHORT_EVERY == 7 else bc + "GT"
+            if len(bc18) == 18:
+                expect[name] = bc18
+            for f, rec, mate in ((f1, a, 1), (f2, b, 2)):
+                lines = rec.split(b"\n")
+                f.write(f"@{name} {mate}:N:0:1\n".encode() + b"\n".join(
+                    lines[1:]))
+            fi.write(f"@{name} 1:N:0:1\n{bc18}\n+\n{'F' * len(bc18)}\n"
+                     .encode())
+    out = os.path.join(smoke_dir(), "driver_tellseq")
+    shutil.rmtree(out, ignore_errors=True)
+    run = run_driver("driver-tellseq", [
+        "-s", "tellseq", "-1", paths[0], "-2", paths[1], "-I", paths[2],
+        "-o", out, "-st", "0"], (), ALL_SCANS)
+    n = 0
+    for rec in iter_records(run["sorted"]):
+        head = rec.split(b"\n", 1)[0][1:].decode()
+        name, _, tag = head.partition("\tBX:Z:")
+        if expect.get(name) is None or tag != expect[name] + "-1":
+            raise AssertionError(f"driver-tellseq: record {n} {head!r} "
+                                 f"carries the wrong tag")
+        n += 1
+    sorted_tags("driver-tellseq", run["sorted"])
+    log(f"driver-tellseq: {n} records sorted of {2 * TELLSEQ_PAIRS} "
+        f"written ({TELLSEQ_PAIRS - len(expect)} pairs with a 17-bp "
+        f"barcode dropped), every BX tag the 18-bp barcode + '-1'")
+    if n != 2 * len(expect):
+        raise AssertionError(f"driver-tellseq: {n} records, expected "
+                             f"{2 * len(expect)}")
+    return run
+
+
+def driver_hybrid(contigs_fa: str, r1: str, r2: str) -> dict:
+    """-s short -l, step 0 only: long reads cut from phase 7's contigs,
+    the short reads phase 6's first HYBRID_PAIRS pairs; no bwa on the
+    card's machine, so the builtin k-mer vote mapper runs on cuda (the
+    CUDA cummax must launch). At least BARCODED_GATE of the pairs get a
+    virtual barcode; the tags are sorted. Returns the run and the
+    run-boundary array of the mapper's first batch."""
+    import itertools
+    from pangaea_tpu_torch.asm.fasta import iter_fasta
+    from pangaea_tpu_torch.asm.mapper import (KmerMapper, run_boundaries,
+                                              sorted_row_ids)
+    d = os.path.join(smoke_dir(), "hybrid_in")
+    os.makedirs(d, exist_ok=True)
+    longreads = os.path.join(d, "long.fa")
+    lengths = []
+    with open(longreads, "w") as f:
+        for name, seq in iter_fasta(contigs_fa):
+            for lo in range(0, len(seq), LONG_READ_LEN):
+                piece = seq[lo:lo + LONG_READ_LEN]
+                f.write(f">long_{len(lengths)} {name.split()[0]}:{lo}\n"
+                        f"{piece}\n")
+                lengths.append(len(piece))
+    shorts = [os.path.join(d, f) for f in ("s1.fq", "s2.fq")]
+    for src, dst in zip((r1, r2), shorts):
+        with open(dst, "wb") as f:
+            f.writelines(itertools.islice(iter_records(src), HYBRID_PAIRS))
+    out = os.path.join(smoke_dir(), "driver_hybrid")
+    shutil.rmtree(out, ignore_errors=True)
+    run = run_driver("driver-hybrid", [
+        "-s", "short", "-1", shorts[0], "-2", shorts[1], "-l", longreads,
+        "-o", out, "-st", "0"], ("cummax",), ("cummin_reverse", "cumsum"))
+    tags = sorted_tags("driver-hybrid", run["sorted"])
+    share = 1.0 - tags.count(b"~~~") / max(len(tags), 1)
+    log(f"driver-hybrid: {len(lengths)} long reads of up to "
+        f"{LONG_READ_LEN} bp ({sum(lengths)} bases), {len(tags)} short "
+        f"pairs; {share:.6f} of the pairs carry a virtual barcode, "
+        f"{len(set(tags)) - (b'~~~' in tags)} distinct")
+    if len(tags) != HYBRID_PAIRS or share < BARCODED_GATE:
+        raise AssertionError(f"driver-hybrid: {len(tags)} pairs, barcoded "
+                             f"share {share} (gate {BARCODED_GATE})")
+    m = KmerMapper(max_row_len=4096, device="cuda")
+    m.index_contigs([(n.split()[0], s) for n, s in iter_fasta(longreads)])
+    seqs = [rec.split(b"\n")[1].decode() for rec in itertools.islice(
+        iter_records(shorts[0]), MAP_BATCH_PAIRS * 2)]
+    s, _ = sorted_row_ids(m.table, *m.encode_reads(seqs), k=m.k)
+    run["boundary"] = run_boundaries(s)[1]
+    del m
+    return run
+
+
+def phase_driver(paired: tuple, ptruth: dict, stlfr: tuple, fq: str,
+                 contigs_fa: str) -> dict:
+    (r1, r2), (paths, vtruth) = paired, stlfr
+    return {"driver-10x": driver_10x(r1, r2, ptruth),
+            "driver-stlfr": driver_stlfr(paths, vtruth),
+            "driver-tellseq": driver_tellseq(fq),
+            "driver-hybrid": driver_hybrid(contigs_fa, r1, r2)}
+
+
+FIRST_OPTIMIZER = (
+    "import sys, time\n"
+    "t0 = time.perf_counter()\n"
+    "import torch\n"
+    "w = [torch.zeros(4, device='cuda', requires_grad=True)]\n"
+    "torch.cuda.synchronize()\n"
+    "t1 = time.perf_counter()\n"
+    "torch.optim.Adam(w)\n"
+    "t2 = time.perf_counter()\n"
+    "torch.optim.Adam(w)\n"
+    "print(t1 - t0, t2 - t1, time.perf_counter() - t2,\n"
+    "      'torch._dynamo' in sys.modules)\n")
+
+
+def first_optimizer_line() -> str:
+    """The seconds of `import torch` (with the card's set-up), of the
+    first torch.optim.Adam() and of a second one in a fresh process on
+    this machine, and whether the first loaded torch._dynamo."""
+    out = subprocess.run([sys.executable, "-c", FIRST_OPTIMIZER],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"first-optimizer probe failed: {out.stderr}")
+    imp, first, second, dynamo = out.stdout.split()
+    return (f"a fresh process: import torch and the card {float(imp):.3f} "
+            f"s, first "
+            f"torch.optim.Adam() {float(first):.3f} s (torch._dynamo "
+            f"loaded: {dynamo}), a second {float(second):.4f} s")
+
+
+def phase_step2(run: dict, fq: str, truth: dict) -> dict:
+    """Steps 2-3 on phase 3's features three ways on cuda: the fused loop
+    (the default), the stepwise loop (PANGAEA_TRAIN_LOOP=stepwise) and
+    bfloat16 matmuls. Fused against stepwise: the same stop epoch and
+    val history (bit-equal, else within HISTORY_RTOL) and cross-ARI >=
+    CROSS_ARI_GATE; bf16: ARI >= ARI_GATE and cross-ARI against the
+    fused run >= CROSS_ARI_GATE."""
+    import numpy as np
+    import torch
+    from pangaea_tpu_torch.cluster.metrics import adjusted_rand_score
+    from pangaea_tpu_torch.config import ClusterConfig, PangaeaConfig
+    from pangaea_tpu_torch.kernels import scan
+    from pangaea_tpu_torch.pipeline import Pipeline
+    runs = {}
+    for name, loop, dtype in (("fused", "fused", "float32"),
+                              ("stepwise", "stepwise", "float32"),
+                              ("bf16", "fused", "bfloat16")):
+        out = os.path.join(smoke_dir(), f"step2_{name}")
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(run["feature_dir"], os.path.join(out, "1.features"))
+        cfg = PangaeaConfig(interleaved_reads=fq, output=out, steps="2,3",
+                            cluster=ClusterConfig(n_clusters=N_CLUSTERS))
+        cfg.model.matmul_dtype = dtype
+        os.environ["PANGAEA_TRAIN_LOOP"] = loop
+        try:
+            pipe = Pipeline(cfg, device="cuda")
+            scan.reset_launches()
+            torch.cuda.synchronize()
+            pipe.run()
+            torch.cuda.synchronize()
+        finally:
+            del os.environ["PANGAEA_TRAIN_LOOP"]
+        check_launched(f"step2-{name}", launch_counts(), (), ALL_SCANS)
+        ari, n_labelled, clusters = cluster_ari(out, truth)
+        secs = {k: round(v.seconds, 3) for k, v in pipe.timer.stages.items()}
+        log(f"step2-{name}: {secs}; {train_line(pipe.train_stats)}; ARI vs "
+            f"truth {ari:.6f} on {n_labelled} labelled barcodes")
+        runs[name] = {"hist": pipe.train_stats["val_history"],
+                      "clusters": clusters, "ari": ari, "secs": secs}
+
+    def cross(a: str, b: str) -> float:
+        ca, cb = runs[a]["clusters"], runs[b]["clusters"]
+        common = sorted(set(ca) & set(cb))
+        return adjusted_rand_score([ca[x] for x in common],
+                                   [cb[x] for x in common])
+
+    hf, hs = runs["fused"]["hist"], runs["stepwise"]["hist"]
+    same_points = [h[:2] for h in hf] == [h[:2] for h in hs]
+    vf = np.asarray([h[2] for h in hf], np.float64)
+    vs = np.asarray([h[2] for h in hs], np.float64)
+    bit_equal = same_points and np.array_equal(vf, vs)
+    rel = (float(np.max(np.abs(vf - vs) / np.abs(vs), initial=0.0))
+           if same_points else float("inf"))
+    x_loops, x_bf16 = cross("fused", "stepwise"), cross("fused", "bf16")
+    log(f"step2: fused vs stepwise on cuda: {len(hf)} vs {len(hs)} evals, "
+        f"stop epochs {hf[-1][0]} vs {hs[-1][0]}, val histories bit-equal: "
+        f"{bit_equal} (largest relative difference {rel:.3e}), cross-ARI "
+        f"{x_loops:.6f}; bf16 ARI {runs['bf16']['ari']:.6f}, cross-ARI vs "
+        f"fused float32 {x_bf16:.6f}")
+    if not same_points or rel > HISTORY_RTOL or x_loops < CROSS_ARI_GATE:
+        raise AssertionError("step2: the fused loop departs from the "
+                             "stepwise loop on the card")
+    if runs["bf16"]["ari"] < ARI_GATE or x_bf16 < CROSS_ARI_GATE:
+        raise AssertionError("step2: bfloat16 below its ARI gates")
+    log(f"step2: {first_optimizer_line()}")
+    return runs
+
+
+def mapper_cummax_record(boundary, launches: int,
+                         path: str = "assembly") -> dict:
     """cummax at the mapper's flat length: kernel vs plain version on the
     run-boundary array of a real map batch, beside torch.cummax along the
     rows of its (R, W) view (which computes the same function there:
@@ -1121,7 +1543,7 @@ def mapper_cummax_record(boundary, launches: int) -> dict:
     return {"name": "cummax", "route": "cuda",
             "source": "pangaea_tpu_torch/csrc/scan.cu",
             "replaces": KERNELS[0][2], "launches": launches,
-            "launches_by_path": {"assembly": launches}, **r}
+            "launches_by_path": {path: launches}, **r}
 
 
 def kernel_records(lengths: dict, by_path: dict) -> list:
@@ -1179,10 +1601,12 @@ def main() -> int:
     phase("build", phase_build)
     phase("kernels", phase_kernels)
     phase("repeat", phase_repeat)
-    ((fq,), truth), ((r1, r2), ptruth), ((fq31,), _) = phase(
-        "simulate", simulate_all, [("data", SIM, False),
-                                   ("data_paired", PAIRED_SIM, True),
-                                   ("data_k31", K31_SIM, False)])
+    ((fq,), truth), ((r1, r2), ptruth), ((fq31,), _), stlfr = phase(
+        "simulate", simulate_all, [
+            (sim_data, ("data", SIM, False)),
+            (sim_data, ("data_paired", PAIRED_SIM, True)),
+            (sim_data, ("data_k31", K31_SIM, False)),
+            (stlfr_data, ("data_stlfr", STLFR_SIM))])
     run = phase("pipeline", phase_pipeline, fq, truth)
     phase("exact", phase_exact, fq, run["feature_dir"])
     spills = phase("spill", phase_spill, fq, run["feature_dir"])
@@ -1194,6 +1618,9 @@ def main() -> int:
                    paired["feature_dir"])
     phase("jellyfish", phase_jellyfish, fq, run["feature_dir"])
     autok = phase("auto-k", phase_autok, run, fq, truth)
+    drivers = phase("driver", phase_driver, (r1, r2), ptruth, stlfr, fq,
+                    os.path.join(run["out"], "final_asm.fa"))
+    phase("step2", phase_step2, run, fq, truth)
     k21_paths = {"k21": k21["run"]["launches"],
                  **{k: v["launches"] for k, v in k21["paths"].items()},
                  "k31": k31["launches"]}
@@ -1203,7 +1630,8 @@ def main() -> int:
                "paired-spill-agg": paired["spill"]["launches"],
                "assembly": asm["launches"], **k21_paths,
                **{k: v["launches"] for k, v in tables.items()},
-               "auto-k": autok["launches"]}
+               "auto-k": autok["launches"],
+               **{k: v["launches"] for k, v in drivers.items()}}
     n_main = run["stats"]["sorted_windows"]
     n_paired = paired["stats"]["sorted_windows"]
     n_k21 = k21["run"]["stats"]["sorted_windows"]
@@ -1217,8 +1645,14 @@ def main() -> int:
                               k21_paths)
     records.append(mapper_cummax_record(asm.pop("boundary"),
                                         asm["launches"]["cummax"]))
+    hybrid = drivers["driver-hybrid"]
+    n_hybrid = hybrid["boundary"].numel()
+    records.append(mapper_cummax_record(hybrid.pop("boundary"),
+                                        hybrid["launches"]["cummax"],
+                                        "driver-hybrid"))
     copies = {str(n): copy_ms(n) for n in sorted({n_main, n_paired, n_k21,
-                                                  n_map, SCAN_CAP})}
+                                                  n_map, n_hybrid,
+                                                  SCAN_CAP})}
     torch.cuda.empty_cache()
     log(f"total {time.perf_counter() - t_start:.1f} s; phases "
         + json.dumps({k: round(v, 3) for k, v in phase_s.items()}))

@@ -95,8 +95,8 @@ class ModelConfig:
     val_fraction: float = 0.7       # test_size = min(0.7*N, 1e6) (pangaea.py:86)
     val_max: int = 1_000_000
     seed: int = 2021                # init_all(seed=2021) (pangaea.py:52)
-    # matmul precision: 'float32' (reference numerics) or 'bfloat16'.
-    # The port implements 'float32' only.
+    # matmul precision: 'float32' (reference numerics) or 'bfloat16'
+    # (operands rounded to bfloat16, float32 accumulation and result).
     matmul_dtype: str = "float32"
 
 

@@ -1,9 +1,9 @@
 """Deterministic synthetic linked-read generator.
 
-Copied from pangaea_tpu.io.sim (``simulate_linked_reads`` only), so that
-tests and ``chip_smoke.py`` can make input from a seed without importing
-pangaea_tpu. For the same arguments it writes the same bytes as the
-original. N species genomes, barcodes assigned to species, paired reads
+Copied from pangaea_tpu.io.sim (``simulate_linked_reads`` and
+``simulate_stlfr_raw``), so that tests and ``chip_smoke.py`` can make
+input from a seed without importing pangaea_tpu. For the same arguments
+it writes the same bytes as the original. N species genomes, barcodes assigned to species, paired reads
 drawn from genome fragments — ground-truth species labels score binning
 quality (ARI).
 """
@@ -211,3 +211,117 @@ def simulate_linked_reads(
             if f:
                 f.close()
     return SimResult(bcs, barcode_species, n_pairs)
+
+
+@dataclass
+class StlfrSimResult:
+    whitelist: List[str]            # whitelist barcode strings, in order
+    partitions: List[Tuple[int, int, int]]  # 1-based index triple per partition
+    partition_species: List[int]
+    virtual_species: Dict[str, int]  # translated barcode -> species
+    n_pairs: int
+    n_unassigned: int
+    n_index_errors: int
+
+
+def simulate_stlfr_raw(
+    out_r1: str,
+    out_r2: str,
+    whitelist_path: str,
+    n_species: int = 4,
+    genome_len: int = 30_000,
+    n_partitions: int = 200,
+    pairs_per_partition: int = 20,
+    read_len: int = 100,
+    insert_len: int = 300,
+    n_wl: int = 96,
+    wl_len: int = 10,
+    unassigned_frac: float = 0.02,
+    index_error_rate: float = 0.0,
+    error_rate: float = 0.0,
+    seed: int = 0,
+) -> StlfrSimResult:
+    """RAW stLFR paired reads + whitelist, for the preprocess_stlfr
+    whitelist-translation exercise (preprocess_stlfr.cpp:76-103).
+
+    Headers are ``@<name>#<i1>_<i2>_<i3>/1`` with 1-based whitelist
+    indices; preprocessing translates the triple to the concatenation of
+    the three whitelist barcodes. Realism knobs:
+
+    - partitions draw triples at random, so with enough partitions two
+      PHYSICAL partitions share a virtual barcode (birthday collision —
+      real stLFR merges those fragment sets);
+    - ``unassigned_frac`` of pairs carry ``0_0_0`` (no barcode call;
+      the reference drops the BX tag for those, :90-99);
+    - ``index_error_rate`` of pairs get ONE index re-drawn (a barcode
+      segment mis-called then "corrected" to the wrong whitelist entry)
+      — reads leak into another, possibly novel, virtual barcode.
+
+    ``virtual_species`` maps each intended translated barcode to its
+    species (collisions resolved first-writer, mirroring how truth is
+    scored); error-leaked reads are noise by design.
+    """
+    rng = np.random.default_rng(seed)
+    genomes = []
+    for _ in range(n_species):
+        probs = rng.dirichlet(np.full(4, 1.5))
+        genomes.append("".join("ACGT"[b] for b in
+                               rng.choice(4, genome_len, p=probs)))
+    # whitelist: distinct fixed-width barcodes, written one per line
+    # (the reference keeps text up to the first tab,
+    # preprocess_stlfr.cpp:35-37 — exercise that with a 2nd column)
+    wl = []
+    while len(wl) < n_wl:
+        cand = "".join("ACGT"[b] for b in rng.integers(0, 4, wl_len))
+        if cand not in wl:
+            wl.append(cand)
+    with open(whitelist_path, "w") as f:
+        for i, b in enumerate(wl):
+            f.write(f"{b}\t{i + 1}\n")
+
+    partitions = [tuple(int(x) + 1 for x in rng.integers(0, n_wl, 3))
+                  for _ in range(n_partitions)]
+    part_species = [int(rng.integers(0, n_species))
+                    for _ in range(n_partitions)]
+    virtual_species: Dict[str, int] = {}
+    for tri, sp in zip(partitions, part_species):
+        vb = wl[tri[0] - 1] + wl[tri[1] - 1] + wl[tri[2] - 1]
+        virtual_species.setdefault(vb, sp)
+
+    def mutate(s: str) -> str:
+        if error_rate <= 0:
+            return s
+        chars = np.frombuffer(s.encode(), np.uint8).copy()
+        errs = rng.random(len(s)) < error_rate
+        if errs.any():
+            chars[errs] = _BASES[rng.integers(0, 4, int(errs.sum()))]
+        return chars.tobytes().decode()
+
+    n_pairs = n_unassigned = n_index_errors = 0
+    with open(out_r1, "w") as f1, open(out_r2, "w") as f2:
+        for pid, (tri, sp) in enumerate(zip(partitions, part_species)):
+            g = genomes[sp]
+            for p in range(pairs_per_partition):
+                pos = int(rng.integers(0, genome_len - insert_len))
+                frag = g[pos:pos + insert_len]
+                r1 = mutate(frag[:read_len])
+                r2 = mutate(_revcomp(frag[-read_len:]))
+                emit = tri
+                if unassigned_frac > 0 and rng.random() < unassigned_frac:
+                    emit = (0, 0, 0)
+                    n_unassigned += 1
+                elif index_error_rate > 0 and \
+                        rng.random() < index_error_rate:
+                    which = int(rng.integers(0, 3))
+                    emit = list(tri)
+                    emit[which] = int(rng.integers(1, n_wl + 1))
+                    emit = tuple(emit)
+                    n_index_errors += emit != tri
+                bc = f"{emit[0]}_{emit[1]}_{emit[2]}"
+                name = f"sr_{pid}_{p}"
+                q = "I" * read_len
+                f1.write(f"@{name}#{bc}/1\n{r1}\n+\n{q}\n")
+                f2.write(f"@{name}#{bc}/2\n{r2}\n+\n{q}\n")
+                n_pairs += 1
+    return StlfrSimResult(wl, partitions, part_species, virtual_species,
+                          n_pairs, n_unassigned, n_index_errors)

@@ -1,9 +1,7 @@
 """VAE training loop: device-resident data, eval cadence, early stop.
 
-Port of the stepwise loop of pangaea_tpu/model/train.py (``_fit_stepwise``,
-:548-638 — its fused loop is bit-identical to it, train.py:25-36).
-Behavior contract (reference src/models/VAENET.py:31-159 +
-src/utils.py:26-52):
+Port of pangaea_tpu/model/train.py. Behavior contract (reference
+src/models/VAENET.py:31-159 + src/utils.py:26-52):
 
 - Adam(lr, weight_decay) with torch's coupled L2 (decay added to the grad
   before the moment update) (VAENET.py:39) — ``torch.optim.Adam`` with
@@ -20,6 +18,40 @@ src/utils.py:26-52):
   in shuffled order, with barcodes saved in matching order
   (VAENET.py:126-144).
 
+Two loops, as in pangaea_tpu (train.py:352-361): the fused loop by
+default, the stepwise loop with ``PANGAEA_TRAIN_LOOP=stepwise``. The
+stepwise loop (``_fit_stepwise``) is the executable spec: it reads each
+val loss on the host, runs the host EarlyStopping, uploads each batch's
+row indices and pickles a checkpoint on every improvement. The fused
+loop (``_fit_fused``, pangaea_tpu's ``_fit_fused`` :363-547) runs
+"units" — one train interval and its val pass — in chunks, and is
+bit-identical to it in every observable: val losses, stop unit, best
+state, checkpoint bytes and the host ``RandomState`` afterwards.
+
+- A chunk's train and val indices are built on the host from the same
+  ``RandomState`` calls in the same order, and uploaded once, from
+  pinned memory. Padded batches are skipped on the host, where their
+  counts are, so the ``torch.Generator`` makes the stepwise loop's draws.
+- The EarlyStopping state (best score float32, counter, stopped) and the
+  best state, packed into one flat buffer, stay on the device. The
+  decision is ``(score - best) <= float32(delta)`` in float32; the host
+  compares ``score < best + delta`` in float64 on float32 values. Near
+  the threshold the subtraction is Sterbenz-exact, no float32 lies
+  strictly between float32(1e-6) and 1e-6, and NaN and -inf take the
+  same branch in both forms (pangaea_tpu train.py:37-43), so the
+  decisions agree bit for bit.
+- Each unit writes one (8,) row — val loss, four train stats, improved,
+  stopped, ran — and the host reads the chunk's (C, 8) block once.
+- After a stop, the host stops launching units as soon as a non-blocking
+  copy of a unit's stop flag has landed (a unit or two late on the
+  card). Units launched meanwhile are masked: they change neither the
+  best state nor the EarlyStopping state, and their rows say they did
+  not run.
+- The host rng is rolled back to the snapshot taken after the stop
+  unit's val draw, so ``dump_latent`` sees the stepwise stream.
+- When a chunk improved, its best state is copied to pinned host memory
+  behind the chunk's work and pickled after the next chunk is launched.
+
 Random streams: the host ``RandomState`` draws (epoch sampling, val
 sampling, the latent permutation) are the JAX package's calls in its
 order, so batches, val sets and latent order match its run exactly.
@@ -34,6 +66,7 @@ from __future__ import annotations
 import logging
 import os
 import pickle
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -106,13 +139,37 @@ def load_into(model: torch.nn.Module, state: StateDict) -> None:
                            for k, v in state.items()})
 
 
+def chunk_units(total_units: int, U: int, vnb: int, bsz: int) -> int:
+    """Units per chunk of the fused loop: pangaea_tpu's (train.py:403-405),
+    so both draw ahead by the same units — at most 512 train batches and
+    about 48 MB of int32 indices a chunk."""
+    per_unit_elems = (U + vnb) * bsz
+    return max(1, min(total_units, 512 // max(1, U) or 1,
+                      (48 << 20) // (4 * per_unit_elems) or 1))
+
+
+class _StopFlags:
+    """Each unit's stop flag, copied to the host without blocking; the
+    host reads a flag once its copy has landed."""
+
+    def __init__(self, n: int, device: torch.device):
+        cuda = device.type == "cuda"
+        self.host = torch.zeros(n, dtype=torch.bool, pin_memory=cuda)
+        self.events = [torch.cuda.Event() if cuda else None
+                       for _ in range(n)]
+
+    def put(self, i: int, flag: torch.Tensor) -> None:
+        self.host[i].copy_(flag, non_blocking=True)
+        if self.events[i] is not None:
+            self.events[i].record()
+
+    def landed(self, i: int) -> bool:
+        return self.events[i] is None or self.events[i].query()
+
+
 class VAETrainer:
     def __init__(self, model: VAE, cfg: ModelConfig,
                  device: DeviceLike = None):
-        if cfg.matmul_dtype != "float32":
-            raise NotImplementedError(
-                f"matmul_dtype={cfg.matmul_dtype!r}: the port runs float32 "
-                "only (bfloat16 is queued)")
         self.device = resolve_device(device)
         setup_numerics()
         self.model = model.to(self.device)
@@ -120,13 +177,18 @@ class VAETrainer:
         self.wa, self.wt, self.wkl = loss_weights(
             model, cfg.weight_alpha, cfg.weight_kl)
         self.val_history = []  # (epoch, done_batches, val_loss) per eval
+        # per-fit phase timers (seconds) of the fused loop
+        self.phase_times: Dict[str, float] = {}
 
     def _generator(self, offset: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(
             self.cfg.seed + offset)
 
-    def _val_loss(self, gen, abd_all, tnf_all, vmat, vcounts) -> float:
-        """Mean over val batches of the per-batch loss totals."""
+    def _val_total(self, gen, abd_all, tnf_all, vmat, vcounts
+                   ) -> torch.Tensor:
+        """Mean over val batches of the per-batch loss totals (a 0-d
+        float32 tensor on the device). ``vmat`` holds host or device
+        row indices."""
         self.model.eval()
         totals = []
         with torch.no_grad():
@@ -134,16 +196,29 @@ class VAETrainer:
                 if cnt == 0:
                     totals.append(torch.zeros((), device=self.device))
                     continue
-                rows = torch.from_numpy(bidx[:cnt]).to(self.device,
-                                                       torch.int64)
+                rows = torch.as_tensor(bidx[:cnt]).to(self.device,
+                                                      torch.int64)
                 out = self.model(abd_all[rows], tnf_all[rows], generator=gen)
                 totals.append(unlabeled_loss(out, self.model, self.wa,
                                              self.wt, self.wkl)["total"])
-        return float(torch.stack(totals).mean())
+        return torch.stack(totals).mean()
 
     def fit(self, dataset: BarcodeDataset, model_dir: str,
             rng: Optional[np.random.RandomState] = None) -> StateDict:
-        """Train (resumable); returns the best model's host state dict."""
+        """Train (resumable); returns the best model's host state dict.
+
+        The fused loop by default; ``PANGAEA_TRAIN_LOOP=stepwise`` runs
+        the stepwise loop. Both give the same results (module
+        docstring)."""
+        if os.environ.get("PANGAEA_TRAIN_LOOP", "fused") == "stepwise":
+            return self._fit_stepwise(dataset, model_dir, rng=rng)
+        return self._fit_fused(dataset, model_dir, rng=rng)
+
+    def _fit_stepwise(self, dataset: BarcodeDataset, model_dir: str,
+                      rng: Optional[np.random.RandomState] = None
+                      ) -> StateDict:
+        """The reference host loop: one host read and EarlyStopping call
+        per eval. Kept as the executable spec of the fused loop."""
         cfg, model = self.cfg, self.model
         rng = rng or np.random.RandomState(cfg.seed)
         os.makedirs(model_dir, exist_ok=True)
@@ -178,7 +253,8 @@ class VAETrainer:
             vidx = dataset.sample_indices(rng, val_size, replacement=False)
             vmat, vmask = batch_index_matrix(vidx, bsz)
             vcounts = vmask.sum(axis=(1, 2)).astype(np.int64)
-            return self._val_loss(gen, abd_all, tnf_all, vmat, vcounts)
+            return float(self._val_total(gen, abd_all, tnf_all, vmat,
+                                         vcounts))
 
         log.info("train start")
         self.val_history = []
@@ -225,6 +301,220 @@ class VAETrainer:
                     break
         if not os.path.exists(ckpt):
             save_best()
+        load_into(model, best["state"])
+        return best["state"]
+
+    def _fit_fused(self, dataset: BarcodeDataset, model_dir: str,
+                   rng: Optional[np.random.RandomState] = None
+                   ) -> StateDict:
+        """The fused loop (module docstring): chunks of units, the
+        EarlyStopping state and the best state on the device, one host
+        read per chunk. ``phase_times`` holds the host seconds spent
+        building chunks (``build``), launching their units
+        (``dispatch``), waiting for their rows (``sync``) and saving
+        checkpoints (``ckpt_io``), with the ``chunks`` and the ``units``
+        launched."""
+        cfg, model, dev = self.cfg, self.model, self.device
+        rng = rng or np.random.RandomState(cfg.seed)
+        os.makedirs(model_dir, exist_ok=True)
+        ckpt = os.path.join(model_dir, "train_model.pk")
+        if os.path.exists(ckpt):
+            log.info("training model already saved")
+            state = load_params(ckpt)
+            load_into(model, state)
+            return state
+
+        opt = torch.optim.Adam(model.parameters(), lr=cfg.lr,
+                               betas=(0.9, 0.999), eps=1e-8,
+                               weight_decay=cfg.weight_decay)
+        gen = self._generator(1)
+        abd_all = torch.from_numpy(dataset.abd).to(dev)
+        tnf_all = torch.from_numpy(dataset.tnf).to(dev)
+        cuda = dev.type == "cuda"
+
+        n = len(dataset)
+        val_size = dataset.val_size(cfg.val_fraction, cfg.val_max)
+        bsz = min(cfg.batch_size, n)
+        nb_epoch = -(-n // bsz)
+        ev = cfg.eval_every_batches
+        U = min(ev, nb_epoch)            # padded interval length
+        upe = -(-nb_epoch // ev)         # units per epoch
+        vnb = max(1, -(-val_size // bsz))
+        total_units = cfg.epochs * upe
+        counts_epoch = np.full(nb_epoch, bsz, np.int64)
+        counts_epoch[-1] = n - (nb_epoch - 1) * bsz
+        vcounts = np.zeros(vnb, np.int64)
+        if val_size:
+            vcounts[:] = bsz
+            vcounts[-1] = val_size - (vnb - 1) * bsz
+        C = chunk_units(total_units, U, vnb, bsz)
+
+        # snapshots[g]: the rng state right after unit g's val draw (the
+        # stepwise loop's stop point)
+        snapshots: Dict[int, tuple] = {}
+
+        def units():
+            g = 0
+            for epoch in range(1, cfg.epochs + 1):
+                tidx = dataset.sample_indices(rng, n, replacement=True)
+                tmat, _ = batch_index_matrix(tidx, bsz)
+                for j in range(upe):
+                    lo, hi = j * ev, min(j * ev + ev, nb_epoch)
+                    vidx = dataset.sample_indices(rng, val_size,
+                                                  replacement=False)
+                    vmat, _ = batch_index_matrix(vidx, bsz)
+                    snapshots[g] = rng.get_state()
+                    yield (g, epoch, hi - lo, hi, tmat[lo:hi],
+                           counts_epoch[lo:hi], vmat)
+                    g += 1
+
+        names = list(model.state_dict())
+        shapes = [v.shape for v in model.state_dict().values()]
+
+        def flat_state() -> torch.Tensor:
+            return torch.cat([v.reshape(-1)
+                              for v in model.state_dict().values()])
+
+        best_flat = torch.zeros_like(flat_state())
+        best_score = torch.tensor(-np.inf, dtype=torch.float32, device=dev)
+        counter = torch.zeros((), dtype=torch.int32, device=dev)
+        stopped = torch.zeros((), dtype=torch.bool, device=dev)
+        delta32 = torch.tensor(np.float32(cfg.early_stop_delta), device=dev)
+        rows_dev = torch.zeros((C, 8), dtype=torch.float32, device=dev)
+        flags = _StopFlags(C, dev)
+        best: Dict[str, Optional[StateDict]] = {"state": None}
+        pending: list = []   # (pinned host copy, its event) to pickle
+
+        def upload(a: np.ndarray) -> torch.Tensor:
+            t = torch.from_numpy(a)
+            if cuda:
+                t = t.pin_memory()
+            return t.to(dev, non_blocking=True).long()
+
+        def run_unit(i: int, counts: np.ndarray, t_idx, v_idx) -> None:
+            nonlocal best_flat, best_score, counter, stopped
+            model.train()
+            stats = torch.zeros(4, device=dev)
+            for j, cnt in enumerate(counts):
+                rows = t_idx[i, j, :cnt]
+                out = model(abd_all[rows], tnf_all[rows], generator=gen)
+                losses = unlabeled_loss(out, model, self.wa, self.wt,
+                                        self.wkl)
+                opt.zero_grad(set_to_none=True)
+                losses["total"].backward()
+                opt.step()
+                stats += torch.stack([losses[k].detach() for k in
+                                      ("total", "abd_rec", "tnf_rec",
+                                       "kl_loss")])
+            val = self._val_total(gen, abd_all, tnf_all, v_idx[i], vcounts)
+            # the EarlyStopping transition; a unit launched after the
+            # stop ("live" false) changes nothing
+            live = ~stopped
+            improved = live & ~((-val - best_score) <= delta32)
+            counter = torch.where(improved, 0,
+                                  torch.where(live, counter + 1, counter))
+            stop = live & ~improved & (counter >= cfg.patience)
+            best_score = torch.where(improved, -val, best_score)
+            best_flat = torch.where(improved, flat_state(), best_flat)
+            stopped = stopped | stop
+            rows_dev[i] = torch.cat([val[None], stats / len(counts),
+                                     torch.stack([improved, stop, live]
+                                                 ).float()])
+            flags.put(i, stop)
+
+        def drain_ckpt() -> None:
+            if not pending:
+                return
+            t0 = time.perf_counter()
+            host, done = pending.pop()
+            if done is not None:
+                done.synchronize()
+            flat, state, off = host.numpy(), {}, 0
+            for name, shape in zip(names, shapes):
+                size = int(np.prod(shape, dtype=np.int64))
+                state[name] = flat[off:off + size].reshape(shape).copy()
+                off += size
+            best["state"] = state
+            save_params(ckpt, state)
+            pt["ckpt_io"] += time.perf_counter() - t0
+
+        pt = self.phase_times = {"build": 0.0, "dispatch": 0.0, "sync": 0.0,
+                                 "ckpt_io": 0.0, "chunks": 0, "units": 0}
+        self.val_history = []
+        gen_units = units()
+        done_units = 0
+        stopped_at = None
+        log.info("train start")
+        while done_units < total_units and stopped_at is None:
+            t0 = time.perf_counter()
+            chunk = [next(gen_units)
+                     for _ in range(min(C, total_units - done_units))]
+            t_np = np.zeros((C, U, bsz), np.int32)
+            v_np = np.zeros((C, vnb, bsz), np.int32)
+            for i, (_, _, nb_u, _, tm, _, vm) in enumerate(chunk):
+                t_np[i, :nb_u], v_np[i] = tm, vm
+            t_idx, v_idx = upload(t_np), upload(v_np)
+            rows_dev.zero_()
+            pt["build"] += time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            polled, halt = 0, False
+            for i, (_, _, _, _, _, counts, _) in enumerate(chunk):
+                # stop launching once an earlier unit's stop flag landed
+                while polled < i and flags.landed(polled):
+                    halt |= bool(flags.host[polled])
+                    polled += 1
+                if halt:
+                    break
+                run_unit(i, counts, t_idx, v_idx)
+                pt["units"] += 1
+            pt["dispatch"] += time.perf_counter() - t0
+            pt["chunks"] += 1
+
+            drain_ckpt()  # the previous chunk's best, behind this chunk
+
+            t0 = time.perf_counter()
+            rows = rows_dev.cpu().numpy()   # one (C, 8) read
+            pt["sync"] += time.perf_counter() - t0
+            any_improved = False
+            for i, (g, epoch, nb_u, done_b, *_) in enumerate(chunk):
+                val, stats = rows[i, 0], rows[i, 1:5]
+                improved, stop, ran = rows[i, 5:8] != 0
+                if not ran:
+                    break
+                self.val_history.append((epoch, done_b, float(val)))
+                if nb_u == ev:  # the reference logs full cadences only
+                    t, a, tn, kl = stats
+                    log.info(
+                        "epoch %d/%d batch %d/%d: train %.8f abd %.8f "
+                        "tnf %.8f kl %.8f | test %.8f", epoch, cfg.epochs,
+                        done_b, nb_epoch, t, a, tn, kl, val)
+                any_improved |= bool(improved)
+                if stop:
+                    stopped_at = g
+                    break
+            done_units += len(chunk)
+            if any_improved:
+                t0 = time.perf_counter()
+                host = torch.empty(best_flat.shape, dtype=best_flat.dtype,
+                                   pin_memory=cuda)
+                host.copy_(best_flat, non_blocking=True)
+                done = torch.cuda.Event() if cuda else None
+                if cuda:
+                    done.record()
+                pending.append((host, done))
+                pt["ckpt_io"] += time.perf_counter() - t0
+
+        drain_ckpt()
+        if stopped_at is not None:
+            log.info("early stop triggered")
+            rng.set_state(snapshots[stopped_at])
+        if best["state"] is None:  # epochs == 0: the initial model
+            best["state"] = host_state(model)
+            save_params(ckpt, best["state"])
+        log.info("train phases (s): %s",
+                 {k: (round(v, 3) if isinstance(v, float) else v)
+                  for k, v in pt.items()})
         load_into(model, best["state"])
         return best["state"]
 

@@ -12,6 +12,13 @@ Port of pangaea_tpu/model/vae.py as an ``nn.Module``. Behavior contract
 - ``nn.LeakyReLU(True)`` in the reference binds negative_slope=1.0, so
   the activation is the identity by default.
 - loss (VAENET.py:161-184): ``wa*CE(abd) + wt*CE(tnf) + w_kl*KL``.
+- ``matmul_dtype='bfloat16'`` (pangaea_tpu's ``_mm``, vae.py:163-168)
+  rounds both operands of every layer's matmul to bfloat16 and
+  accumulates in float32 with a float32 result; the backward pass rounds
+  both input gradients to bfloat16, as the VJP of JAX's
+  ``lax.dot(bf16, bf16, preferred_element_type=f32)`` behind an f32->bf16
+  convert does (:class:`BF16Matmul`). Biases, BatchNorm, activations, the
+  loss and Adam stay float32.
 - BatchNorm is written out by hand, as pangaea_tpu's ``_bn_apply``:
   biased variance to normalise, unbiased variance (n / max(n-1, 1)) into
   the running stats, eps 1e-5, momentum 0.1; eval mode uses the running
@@ -32,6 +39,32 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+class BF16Matmul(torch.autograd.Function):
+    """``x @ w.T`` on bfloat16-rounded operands with a float32 result.
+
+    The products of two bfloat16 values are exact in float32, so a
+    float32 matmul of the rounded operands (TF32 off, as
+    ``utils.setup_numerics`` sets) is a bfloat16 matmul with float32
+    accumulation. Both input gradients are rounded to bfloat16."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        xb, wb = _round_bf16(x), _round_bf16(w)
+        ctx.save_for_backward(xb, wb)
+        return xb @ wb.T
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        xb, wb = ctx.saved_tensors
+        gx = _round_bf16(g @ wb) if ctx.needs_input_grad[0] else None
+        gw = _round_bf16(g.T @ xb) if ctx.needs_input_grad[1] else None
+        return gx, gw
 
 
 class BatchNorm(nn.Module):
@@ -70,10 +103,15 @@ class VAE(nn.Module):
                  latent_dim: int = 32, dropout: float = 0.2,
                  negative_slope: float = 1.0, bn_eps: float = 1e-5,
                  bn_momentum: float = 0.1, loss_eps: float = 1e-9,
+                 matmul_dtype: str = "float32",
                  generator: Optional[torch.Generator] = None):
         """Weights follow nn.Linear's default init (U(+-1/sqrt(fan_in))
         for weight and bias), drawn from ``generator`` when given."""
         super().__init__()
+        if matmul_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"matmul_dtype={matmul_dtype!r}: float32 or "
+                             "bfloat16")
+        self.matmul_dtype = matmul_dtype
         self.abd_dim, self.tnf_dim = abd_dim, tnf_dim
         self.hidden_sizes = tuple(hidden_sizes)
         self.latent_dim = latent_dim
@@ -112,9 +150,15 @@ class VAE(nn.Module):
             return x
         return F.leaky_relu(x, self.negative_slope)
 
+    def linear(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """``lin(x)`` under the model's matmul precision."""
+        if self.matmul_dtype == "bfloat16":
+            return BF16Matmul.apply(x, lin.weight) + lin.bias
+        return lin(x)
+
     def _stack(self, lins, bns, x, masks):
         for i, (lin, bn) in enumerate(zip(lins, bns)):
-            x = self._act(bn(lin(x)))
+            x = self._act(bn(self.linear(lin, x)))
             if masks is not None:
                 x = torch.where(masks[i], x / (1.0 - self.dropout),
                                 torch.zeros_like(x))
@@ -152,8 +196,8 @@ class VAE(nn.Module):
             drop_masks = None
         h = self._stack(self.enc, self.enc_bn, x,
                         None if drop_masks is None else drop_masks[:nh])
-        mu = self.mu(h)
-        logsigma = F.softplus(self.sigma(h))
+        mu = self.linear(self.mu, h)
+        logsigma = F.softplus(self.linear(self.sigma, h))
         if noise is None:
             if self.training or generator is not None:
                 noise = torch.randn(mu.shape, generator=generator,
@@ -163,7 +207,7 @@ class VAE(nn.Module):
         latent = mu + noise * torch.exp(logsigma / 2.0)
         d = self._stack(self.dec, self.dec_bn, latent,
                         None if drop_masks is None else drop_masks[nh:])
-        out = self.out(d)
+        out = self.linear(self.out, d)
         return {"abd": abd, "tnf": tnf,
                 "abd_rec": F.softmax(out[:, :self.abd_dim], dim=1),
                 "tnf_rec": F.softmax(out[:, self.abd_dim:], dim=1),
@@ -202,7 +246,7 @@ def embed(model: VAE, abd: torch.Tensor, tnf: torch.Tensor) -> torch.Tensor:
     try:
         h = model._stack(model.enc, model.enc_bn,
                          torch.cat([abd, tnf], dim=1), None)
-        return model.mu(h)
+        return model.linear(model.mu, h)
     finally:
         model.train(was)
 

@@ -12,9 +12,10 @@ members (BGZF) and zero padding after a member still read.
 It is built with g++ (against zlib) at first use into ``build/native``
 through :func:`pangaea_tpu_torch.kernels.build.load_host`; a failed build
 raises with the compiler's output. Bound here: ``pgn_open``,
-``pgn_close``, ``pgn_read``, ``pgn_read_lq``, ``pgn_error`` and
-``pgn_extract_reads``. The library's step-0 barcode-sort entry points
-(``pgn_sort_*``) are not bound: the port has no step 0 yet.
+``pgn_close``, ``pgn_read``, ``pgn_read_lq``, ``pgn_error``,
+``pgn_extract_reads`` and step 0's barcode-sort entry points
+``pgn_sort_feed``, ``pgn_sort_emit`` and ``pgn_sort_radix``
+(io/fastq.barcode_sort_interleaved).
 """
 
 from __future__ import annotations
@@ -57,6 +58,13 @@ def get_lib() -> ctypes.CDLL:
     lib.pgn_extract_reads.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
                                       ctypes.c_char_p, ctypes.c_char_p,
                                       ctypes.c_int]
+    lib.pgn_sort_feed.restype = ctypes.c_longlong
+    lib.pgn_sort_feed.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.pgn_sort_emit.restype = ctypes.c_longlong
+    lib.pgn_sort_emit.argtypes = [ctypes.c_int, ctypes.c_char_p]
+    lib.pgn_sort_radix.restype = ctypes.c_longlong
+    lib.pgn_sort_radix.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                   ctypes.c_char_p, ctypes.c_longlong]
     return lib
 
 

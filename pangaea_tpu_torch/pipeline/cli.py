@@ -8,10 +8,9 @@ means every CPU the process may run on).
 
 The flags are pangaea_tpu's (pipeline/cli.py:17-71) plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain PyTorch versions), and the
-default steps are the same ``1,2,3,4``. Flags of paths this port does
-not run yet are accepted by the parser and rejected with an error:
-bfloat16 matmuls and pangaea_tpu's host routing of small clustering
-fits. ``-k`` takes 1..31, the reference's uint64 k-mers (k > 15 runs the
+default steps are the same ``1,2,3,4``. ``--cluster_device_min_elems``
+(pangaea_tpu's host routing of small clustering fits) is accepted by the
+parser and rejected with an error: step 3 runs on ``--device``. ``-k`` takes 1..31, the reference's uint64 k-mers (k > 15 runs the
 sort-join on int64 keys).
 """
 
@@ -25,9 +24,8 @@ from pangaea_tpu_torch.config import (AssemblyConfig, ClusterConfig,
                                       FeatureConfig, ModelConfig,
                                       PangaeaConfig)
 
-# (dest, value the port can honour) of the flags it cannot honour yet
+# (dest, value the port can honour) of the flags it does not honour
 _UNPORTED = (
-    ("matmul_dtype", "float32"),
     ("cluster_device_min_elems", None),
 )
 
@@ -61,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-ld", "--latent_dim", type=int, default=32)
     p.add_argument("--matmul_dtype", choices=("float32", "bfloat16"),
                    default="float32",
-                   help="VAE matmul precision (the port runs float32 only)")
+                   help="VAE matmul precision: bfloat16 rounds the matmul "
+                        "operands, accumulating in float32")
     # others
     p.add_argument("-c", "--clusters", type=int, default=None,
                    help="number of clusters; without it, metaphlan "
@@ -92,7 +91,7 @@ def check_supported(p: argparse.ArgumentParser,
     """parser.error() for every flag of a path the port cannot run."""
     for dest, ok in _UNPORTED:
         if getattr(args, dest) != ok:
-            p.error(f"--{dest} is not supported by the PyTorch port yet")
+            p.error(f"--{dest} is not supported by the PyTorch port")
     if not 1 <= args.kmer <= 31:
         p.error(f"-k {args.kmer}: the k-mer length must be 1..31")
 

@@ -61,6 +61,9 @@ class Pipeline:
         self.feature_extractor = None
         # step 3's cluster count, where it came from, and its seconds
         self.cluster_stats: dict = {}
+        # step 2's (epoch, batch, val loss) per eval, the fused loop's
+        # phase_times, and the seconds of its set-up, fit and latent dump
+        self.train_stats: dict = {}
         # step 4's sub-stage seconds, counts and backends (asm/final.py)
         self.assembly_stats: dict = {}
         self.timer = StageTimer()
@@ -96,17 +99,25 @@ class Pipeline:
                                   device=self.device)
             names, abd, tnf = fe.load_features()
         os.makedirs(self.model_dir, exist_ok=True)
+        t0 = time.perf_counter()
         ds = BarcodeDataset(names, abd, tnf)
         m = self.cfg.model
         model = VAE(abd_dim=ds.abd_dim, tnf_dim=ds.tnf_dim,
                     hidden_sizes=tuple(m.hidden_sizes),
                     latent_dim=m.latent_dim, dropout=m.dropout,
                     negative_slope=m.negative_slope,
+                    matmul_dtype=m.matmul_dtype,
                     generator=torch.Generator().manual_seed(m.seed))
         trainer = VAETrainer(model, m, device=self.device)
         rng = np.random.RandomState(m.seed)
+        t1 = time.perf_counter()
         state = trainer.fit(ds, self.model_dir, rng=rng)
+        t2 = time.perf_counter()
         trainer.dump_latent(ds, self.model_dir, state, rng=rng)
+        self.train_stats = {"val_history": list(trainer.val_history),
+                            "phase_times": dict(trainer.phase_times),
+                            "setup_s": t1 - t0, "fit_s": t2 - t1,
+                            "latent_s": time.perf_counter() - t2}
         with open(os.path.join(self.model_dir, "model_finished"), "w") as f:
             f.write("model finished")
 

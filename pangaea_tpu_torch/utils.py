@@ -1,4 +1,5 @@
-"""Device selection and run set-up shared by the port's entry points."""
+"""Device selection and run set-up shared by the port's entry points,
+and glibc's ``rand()`` for hybrid mode's virtual barcodes."""
 
 from __future__ import annotations
 
@@ -12,6 +13,61 @@ from typing import Iterator, Optional, Union
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+
+
+class GlibcRand:
+    """Bit-exact replica of glibc's ``rand()`` (TYPE_3 additive-feedback
+    generator, the default for ``srand``/``rand``).
+
+    Copied from pangaea_tpu.utils. Used to reproduce the reference's
+    virtual-barcode draws byte-for-byte: add_barcode seeds
+    ``srand(2023)`` (src/cpptools/add_barcode.cpp:105) and consumes one
+    ``rand() % n`` per read group with >=1 qualifying alignment (:71-72). The reference runs that loop
+    under OpenMP, where ``rand()`` interleaving is nondeterministic; this
+    replica matches the OMP_NUM_THREADS=1 stream, which is the only
+    deterministic ordering the reference itself has.
+
+    Algorithm (glibc stdlib/random_r.c): 31-word state seeded by a
+    Park-Miller LCG via Schrage's method, recurrence
+    ``r[i] = (r[i-31] + r[i-3]) mod 2^32`` with the first 310 outputs
+    discarded; each output is ``r[i] >> 1``. Verified against compiled C
+    by tests/test_hybrid_e2e.py::test_glibc_rand_matches_libc (and the
+    port's copy by tests/test_torch_step0.py).
+    """
+
+    def __init__(self, seed: int) -> None:
+        word = (seed & 0xFFFFFFFF) or 1
+        if word >= 0x80000000:
+            word -= 0x100000000
+        r = [word]
+        for _ in range(30):
+            # Schrage step with C semantics: glibc computes hi/lo with
+            # truncating division (random_r.c seeds via `long int`), which
+            # differs from Python's floor divmod when word is negative —
+            # i.e. for seeds >= 2^31, whose initial word is a negative
+            # int32. Only the first iteration can see word < 0 (the step
+            # maps into [0, 2^31) afterwards).
+            if word < 0:
+                hi = -(-word // 127773)
+                lo = word - hi * 127773
+            else:
+                hi, lo = divmod(word, 127773)
+            word = 16807 * lo - 2836 * hi
+            if word < 0:
+                word += 2147483647
+            r.append(word)
+        r += r[:3]
+        for i in range(34, 344):
+            r.append((r[i - 31] + r[i - 3]) & 0xFFFFFFFF)
+        self._r = r[-31:]
+        self._i = 0
+
+    def rand(self) -> int:
+        r, i = self._r, self._i
+        val = (r[i] + r[i - 3]) & 0xFFFFFFFF
+        r[i] = val
+        self._i = (i + 1) % 31
+        return val >> 1
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

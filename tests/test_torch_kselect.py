@@ -301,8 +301,9 @@ def test_estimate_k_matches_jax(branch, tmp_path, monkeypatch, small_bic):
     ([], True),                                       # no -c
     (["-m", "db"], True),                             # metaphlan
     (["-m", "db", "-c", "4", "-t", "3"], True),
-    (["--matmul_dtype", "bfloat16"], False),          # still unported
+    (["-k", "32"], False),                            # past 31
     (["--cluster_device_min_elems", "10"], False),
+    (["--matmul_dtype", "bfloat16"], True),
 ])
 def test_cli_without_c(argv, ok, capsys):
     p = cli.build_parser()
@@ -316,6 +317,8 @@ def test_cli_without_c(argv, ok, capsys):
     cfg = cli.config_from_args(args)
     assert cfg.cluster.n_clusters == (4 if "-c" in argv else None)
     assert cfg.metaphlan_db == ("db" if "-m" in argv else "")
+    assert cfg.model.matmul_dtype == ("bfloat16" if "--matmul_dtype" in argv
+                                      else "float32")
 
 
 # 8 species: pangaea_tpu's kmin=4 and its Kneedle (which never picks the

@@ -275,11 +275,17 @@ def _record_draws(ds, log):
 def test_host_streams_and_latent_order_match(tmp_path, n, bsz, ev, epochs):
     """Same RandomState, same calls in the same order: identical train
     batches and val sets, the same eval points, the same rng state after
-    the fit, and the same barcode order in the latent dump."""
+    the fit, and the same barcode order in the latent dump. The port's
+    fit (its fused loop) draws as pangaea_tpu's stepwise and fused loops
+    do."""
     names, abd, tnf = _synth(n)
     kw = dict(epochs=epochs, batch_size=bsz, patience=1000,
               eval_every_batches=ev, hidden_sizes=HIDDEN, latent_dim=LATENT)
-    draws = {"jax": [], "port": []}
+    draws = {"jax": [], "port": [], "jax_fused": []}
+    fds = JaxDataset(names, abd, tnf)
+    _record_draws(fds, draws["jax_fused"])
+    jtrain.VAETrainer(_jax_model(), JaxModelConfig(**kw))._fit_fused(
+        fds, str(tmp_path / "jf"), rng=np.random.RandomState(2021))
 
     jds = JaxDataset(names, abd, tnf)
     _record_draws(jds, draws["jax"])
@@ -296,9 +302,12 @@ def test_host_streams_and_latent_order_match(tmp_path, n, bsz, ev, epochs):
     mu, tbcs = tt.dump_latent(tds, str(tmp_path / "t"), state, rng=trng)
 
     assert len(draws["port"]) == len(draws["jax"]) > epochs
-    for (na, ra, a), (nb, rb, b) in zip(draws["port"], draws["jax"]):
-        assert (na, ra) == (nb, rb)
+    assert len(draws["jax_fused"]) == len(draws["jax"])
+    for (na, ra, a), (nb, rb, b), (nc, rc, c) in zip(
+            draws["port"], draws["jax"], draws["jax_fused"]):
+        assert (na, ra) == (nb, rb) == (nc, rc)
         np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
     assert [h[:2] for h in tt.val_history] == [h[:2] for h in jt.val_history]
     s, j = trng.get_state(), jrng.get_state()
     assert s[0] == j[0] and (s[1] == j[1]).all() and s[2:] == j[2:]
@@ -317,9 +326,3 @@ def test_fit_resumes_from_checkpoint(tmp_path):
         ds, str(tmp_path))
     for k in first:
         np.testing.assert_array_equal(first[k], again[k])
-
-
-def test_trainer_rejects_bfloat16():
-    with pytest.raises(NotImplementedError):
-        ttrain.VAETrainer(_port_model(), ModelConfig(matmul_dtype="bfloat16"),
-                          device="cpu")

@@ -118,19 +118,13 @@ def test_step3_writes_clusters_through_unique_temp(port_run, sim,  # noqa: F811
 
 def test_unported_requests_raise(tmp_path, sim):  # noqa: F811
     """k = 32 is past the reference's uint64 k-mers: step 1 raises and
-    leaves no marker. bfloat16 VAE matmuls are not ported: step 2
-    raises and leaves no marker."""
+    leaves no marker."""
     reads, _ = sim
     cfg = _port_config(reads, str(tmp_path / "k")).replace(steps="1")
     cfg.feature.kmer = 32
     with pytest.raises(ValueError, match="1..31"):
         Pipeline(cfg, device="cpu").run()
     assert not check_step_finished(cfg.output, "1")
-    cfg = _port_config(reads, str(tmp_path / "b")).replace(steps="1,2")
-    cfg.model.matmul_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError):
-        Pipeline(cfg, device="cpu").run()
-    assert not check_step_finished(cfg.output, "2")
 
 
 def test_default_device_is_the_card():
@@ -144,9 +138,7 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("argv", [
-    ["-c", "4", "--matmul_dtype", "bfloat16"],
     ["-c", "4", "--cluster_device_min_elems", "10"],
-    ["-m", "db", "--matmul_dtype", "bfloat16"],   # -m and no -c parse
     ["--cluster_device_min_elems", "10"],
 ])
 def test_cli_rejects_unported_flags(argv, tmp_path):
@@ -202,10 +194,14 @@ def test_port_imports_no_jax_and_no_pangaea_tpu():
         "          'asm.tools', 'asm.fasta', 'asm.naive', 'asm.unmapped',\n"
         "          'asm.mapper', 'asm.bin_assembly', 'asm.merge_olc',\n"
         "          'asm.circular_logic', 'asm.circularize', 'asm.final',\n"
-        "          'asm.diversity', 'cluster.k_selection', 'pipeline.run'):\n"
+        "          'asm.diversity', 'cluster.k_selection', 'pipeline.run',\n"
+        "          'io.preprocess', 'io.hybrid', 'io.sim', 'model.train',\n"
+        "          'pipeline.driver'):\n"
         "    assert 'pangaea_tpu_torch.' + m in sys.modules, m\n"
         "from pangaea_tpu_torch.pipeline.run import Pipeline\n"
         "from pangaea_tpu_torch.cluster import select_k_with_bic\n"
+        "from pangaea_tpu_torch.pipeline.driver import main\n"
+        "from pangaea_tpu_torch.io.fastq import barcode_sort_interleaved\n"
         "assert callable(Pipeline._estimate_k)\n"
         "assert callable(select_k_with_bic)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
