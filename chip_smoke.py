@@ -119,6 +119,31 @@ Phases, each fatal on failure:
               epoch, phase_times and the step seconds of each, and the
               seconds of the first torch.optim.Adam() in a fresh process
               (a one-time cost the process's first step 2 pays).
+11. parallel — pangaea_tpu_torch.parallel on cuda at world size 1 on NCCL
+              (a FileStore rendezvous in build/smoke; one card, so no
+              multi-rank NCCL run): the
+              ShardedFeatureExtractor on phase 3's file (k = 15), at
+              k = 21 and on the paired files (the weighted routed join),
+              CSV bytes equal to phases 3, 8 and 6, each launching the
+              cumsum of the owner's run ids and the cummax of the
+              forward fill (no cummin_reverse); the key-range-sharded
+              4^15 table path (no scan), byte-equal to phase 3;
+              sharded_lloyd on phase 3's latent against kmeans_lloyd
+              (same iterations, cross-ARI >= 0.95); four fused-loop
+              units through sharded_unit_chunk against the one-device
+              units (same improved/stop flags, val within 1e-3); then
+              step 1 at k = 31 on two spawned gloo CPU ranks, byte-equal
+              to phase 8's card run, joined under a timeout.
+12. merge   — python -m pangaea_tpu_torch.pipeline.merge <root>
+              metaspades --device cuda on a root built from phase 7's
+              output (seed = its final_asm.fa, Athena's files cut from
+              it): the builtin containment filter launches cummax, every
+              file equals the same merge with --device cpu, and
+              merged_out.fasta keeps >= 8 contigs and >= 800,000 bases.
+    trace   — step 1 at k = 31 through Pipeline.run with
+              PANGAEA_TPU_TRACE set: one Chrome trace whose CUDA kernel
+              events include scan_kernel; prints the busiest kernels and
+              the device busy share of the 'pipeline' range.
 
 Every path's launch counts are zeroed just before it and read just
 after it. After the phases, cummax and cummin_reverse are timed at the
@@ -1515,6 +1540,481 @@ def phase_step2(run: dict, fq: str, truth: dict) -> dict:
     return runs
 
 
+# ---- phase 11 ------------------------------------------------------------
+
+SHARD_SCANS = ("cumsum", "cummax")   # the routed join: owner run ids, fill
+UNITS_C, UNITS_U, UNITS_VNB = 4, 2, 2  # sharded_unit_chunk's units
+UNIT_VAL_RTOL = 1e-3
+GLOO_WORLD = 2
+GLOO_TIMEOUT_S = 600
+
+
+def csv_bytes(fe) -> tuple:
+    """The decompressed bytes of an extractor's two CSVs."""
+    import gzip
+    out = []
+    for p in (fe.abd_gz, fe.tnf_gz):
+        with gzip.open(p) as f:
+            out.append(f.read())
+    return tuple(out)
+
+
+def expected_csvs(feature_dir: str, cfg) -> tuple:
+    from pangaea_tpu_torch.features import FeatureExtractor
+    return csv_bytes(FeatureExtractor(cfg, feature_dir, device="cpu"))
+
+
+def run_sharded_step1(what: str, inputs: dict, cfg, expect_dir: str,
+                      kernels, absent=()) -> dict:
+    """ShardedFeatureExtractor on cuda (world size 1, NCCL) with the
+    launch counts zeroed just before: its CSV bytes must equal those in
+    ``expect_dir`` (an earlier phase's one-device run). The one-device
+    FeatureExtractor runs the same config first, timed alike (both
+    write their CSVs before returning)."""
+    import torch
+    from pangaea_tpu_torch.features import FeatureExtractor
+    from pangaea_tpu_torch.kernels import scan
+    from pangaea_tpu_torch.parallel import ShardedFeatureExtractor
+    d = os.path.join(smoke_dir(), what)
+    one = d + "-one-device"
+    for p in (d, one):
+        shutil.rmtree(p, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    FeatureExtractor(cfg, one, device="cuda").extract_features(**inputs)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    fe = ShardedFeatureExtractor(cfg, d, device="cuda")
+    scan.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    names, _, _ = fe.extract_features(**inputs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"{what}: sharded step 1 on cuda (world size 1, nccl) in "
+        f"{secs:.3f} s (one device {one_s:.3f} s); scan launches "
+        f"{launches}")
+    log_stats(what, fe.stats)
+    check_launched(what, launches, kernels, absent)
+    if csv_bytes(fe) != expected_csvs(expect_dir, cfg):
+        raise AssertionError(f"{what}: CSV bytes differ from {expect_dir}")
+    log(f"{what}: {len(names)} barcodes, CSVs byte-equal to {expect_dir}")
+    return {"launches": launches, "seconds": secs, "one_device_s": one_s,
+            "stats": dict(fe.stats)}
+
+
+def check_sharded_lloyd(run: dict) -> dict:
+    """sharded_lloyd on phase 3's latent against the one-device
+    kmeans_lloyd from the same 8 initial centres: the same iterations,
+    cross-ARI >= CROSS_ARI_GATE."""
+    import numpy as np
+    import torch
+    from pangaea_tpu_torch.cluster.kmeans import kmeans_lloyd
+    from pangaea_tpu_torch.cluster.metrics import adjusted_rand_score
+    from pangaea_tpu_torch.kernels import scan
+    from pangaea_tpu_torch.parallel import sharded_lloyd
+    emb = np.load(os.path.join(run["out"], "2.vae", "latent.npz"))["arr_0"]
+    emb = np.ascontiguousarray(emb, dtype=np.float32)
+    init = emb[np.random.RandomState(0).choice(len(emb), N_CLUSTERS,
+                                               replace=False)]
+    t0 = time.perf_counter()
+    _, l1, in1, it1 = kmeans_lloyd(emb, init, device="cuda")
+    t1 = time.perf_counter()
+    lloyd = sharded_lloyd(device="cuda")
+    x = torch.from_numpy(emb).cuda()
+    tol = np.float32(1e-4 * np.mean(np.var(emb, axis=0)))
+    scan.reset_launches()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _, l2, in2, it2 = lloyd(x, torch.ones(len(emb), device="cuda"),
+                            torch.from_numpy(init).cuda(),
+                            torch.tensor(tol, device="cuda"))
+    l2 = l2.cpu().numpy()
+    secs = time.perf_counter() - t2
+    launches = launch_counts()
+    check_launched("sharded-lloyd", launches, (), ALL_SCANS)
+    ari = adjusted_rand_score(l1, l2)
+    log(f"sharded-lloyd: {emb.shape} latent, {it2} iterations in {secs:.3f}"
+        f" s (one device {it1} in {t1 - t0:.3f} s), inertia "
+        f"{float(in2):.6f} vs {float(in1):.6f}, cross-ARI {ari:.6f}")
+    if it1 != it2 or ari < CROSS_ARI_GATE:
+        raise AssertionError("sharded-lloyd: departs from the one-device "
+                             "fit")
+    return {"seconds": secs, "launches": launches}
+
+
+def check_sharded_units(run: dict) -> dict:
+    """UNITS_C fused-loop units of phase 3's features at pangaea_tpu's
+    model defaults (patience 2, a partial train batch and a partial val
+    batch) through sharded_unit_chunk and through the one-device
+    _run_unit, from the same weights and generator: the same improved
+    and stop flags, val losses within UNIT_VAL_RTOL."""
+    import numpy as np
+    import torch
+    from pangaea_tpu_torch.config import ModelConfig
+    from pangaea_tpu_torch.kernels import scan
+    from pangaea_tpu_torch.model import BarcodeDataset, VAE, VAETrainer
+    from pangaea_tpu_torch.model.train import FusedState
+    from pangaea_tpu_torch.parallel import sharded_unit_chunk
+    ds = BarcodeDataset(*load_features(run["feature_dir"]))
+    m = ModelConfig(patience=2)
+    n, bsz = len(ds), min(m.batch_size, len(ds))
+    rng = np.random.RandomState(0)
+    uidx = rng.randint(0, n, (UNITS_C, UNITS_U, bsz))
+    ucnt = np.full((UNITS_C, UNITS_U), bsz)
+    ucnt[-1, -1] = bsz // 2 + 1
+    vidx = rng.randint(0, n, (UNITS_C, UNITS_VNB, bsz))
+    vcnt = [bsz, bsz // 3]
+    abd, tnf = (torch.from_numpy(a).cuda() for a in (ds.abd, ds.tnf))
+
+    def trainer():
+        model = VAE(ds.abd_dim, ds.tnf_dim, hidden_sizes=m.hidden_sizes,
+                    latent_dim=m.latent_dim, dropout=m.dropout,
+                    generator=torch.Generator().manual_seed(m.seed))
+        tr = VAETrainer(model, m, device="cuda")
+        return tr, FusedState(tr.model, m, tr.device), tr.optimizer(), \
+            tr._generator(1)
+
+    tr, es, opt, gen = trainer()
+    rows1 = torch.zeros((UNITS_C, 8), device="cuda")
+    t0 = time.perf_counter()
+    u_dev = torch.from_numpy(uidx).cuda()
+    v_dev = torch.from_numpy(vidx).cuda()
+    for i in range(UNITS_C):
+        if bool(es.stopped):
+            rows1[i, 6] = 1.0
+            continue
+        rows1[i], _ = tr._run_unit(es, opt, gen, abd, tnf, ucnt[i].tolist(),
+                                   u_dev[i], v_dev[i], vcnt)
+    rows1 = rows1.cpu().numpy()
+    t1 = time.perf_counter()
+    tr, es, opt, gen = trainer()
+    chunk = sharded_unit_chunk(tr, device="cuda")
+    scan.reset_launches()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rows2 = chunk(es, opt, gen, abd, tnf, uidx, ucnt, np.ones(UNITS_C, bool),
+                  vidx, vcnt).cpu().numpy()
+    secs = time.perf_counter() - t2
+    launches = launch_counts()
+    check_launched("sharded-units", launches, (), ALL_SCANS)
+    ran = rows2[:, 7] != 0
+    rel = float(np.max(np.abs(rows2[ran, 0] - rows1[ran, 0])
+                       / np.abs(rows1[ran, 0]), initial=0.0))
+    log(f"sharded-units: {UNITS_C} units of {UNITS_U} x {bsz} rows on "
+        f"cuda in {secs:.3f} s (one device {t1 - t0:.3f} s); val "
+        f"{rows2[ran, 0].tolist()} vs {rows1[ran, 0].tolist()} (largest "
+        f"relative difference {rel:.3e}); improved "
+        f"{rows2[:, 5].tolist()}, stop {rows2[:, 6].tolist()}")
+    if not (np.array_equal(rows1[:, 5:8] != 0, rows2[:, 5:8] != 0)
+            and rel <= UNIT_VAL_RTOL):
+        raise AssertionError("sharded-units: depart from the one-device "
+                             "units")
+    return {"seconds": secs, "launches": launches}
+
+
+def gloo_rank(rank: int, world: int, store: str, fq: str, out: str) -> None:
+    """One CPU rank of the gloo step-1 run (a spawned process)."""
+    import torch
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    import torch.distributed as dist
+    from pangaea_tpu_torch.config import FeatureConfig, ParallelConfig
+    from pangaea_tpu_torch.parallel import (ShardedFeatureExtractor,
+                                            initialize_distributed)
+    initialize_distributed(ParallelConfig(
+        use_distributed=True, coordinator_address=f"file://{store}",
+        num_processes=world, process_id=rank), device="cpu")
+    fe = ShardedFeatureExtractor(FeatureConfig(kmer=31), out, device="cpu")
+    fe.extract_features(interleaved=fq)
+    dist.destroy_process_group()
+
+
+def check_gloo_step1(fq31: str, k31_dir: str) -> float:
+    """Step 1 at k = 31 on GLOO_WORLD spawned CPU ranks (gloo): CSV bytes
+    equal to phase 8's k = 31 run on the card; the ranks are joined
+    under GLOO_TIMEOUT_S and killed on it."""
+    import multiprocessing
+    from pangaea_tpu_torch.config import FeatureConfig
+    out = os.path.join(smoke_dir(), "parallel-gloo")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    store = os.path.join(out, "store")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=gloo_rank,
+                         args=(r, GLOO_WORLD, store, fq31, out))
+             for r in range(GLOO_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + GLOO_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"parallel-gloo: ranks did not finish "
+                                     f"in {GLOO_TIMEOUT_S} s")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    secs = time.perf_counter() - t0
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"parallel-gloo: rank exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    from pangaea_tpu_torch.features import FeatureExtractor
+    cfg = FeatureConfig(kmer=31)
+    got = csv_bytes(FeatureExtractor(cfg, out, device="cpu"))
+    if got != expected_csvs(k31_dir, cfg):
+        raise AssertionError("parallel-gloo: CSV bytes differ from the "
+                             "card's k = 31 run")
+    log(f"parallel-gloo: step 1 at k = 31 on {GLOO_WORLD} gloo CPU ranks "
+        f"in {secs:.3f} s (spawn and imports included), CSVs byte-equal "
+        f"to the card's")
+    return secs
+
+
+def phase_parallel(fq: str, run: dict, r1: str, r2: str, paired: dict,
+                   k21: dict, fq31: str) -> dict:
+    """The sharded paths on cuda at world size 1 on NCCL (a FileStore
+    rendezvous in build/smoke): ShardedFeatureExtractor on phase 3's
+    file (k = 15), at k = 21 against phase 8, on the paired files
+    (weighted join) against phase 6, the key-range-sharded 4^15 table
+    path; sharded_lloyd and sharded_unit_chunk against one device; then
+    step 1 at k = 31 on two gloo CPU ranks."""
+    import torch.distributed as dist
+    from pangaea_tpu_torch.config import FeatureConfig, ParallelConfig
+    from pangaea_tpu_torch.parallel import initialize_distributed
+    from pangaea_tpu_torch.pipeline import cli
+    store = os.path.join(smoke_dir(), "nccl.store")
+    if os.path.exists(store):
+        os.remove(store)
+    initialize_distributed(ParallelConfig(
+        use_distributed=True, coordinator_address=f"file://{store}",
+        num_processes=1, process_id=0), device="cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"parallel: backend {dist.get_backend()}")
+    import torch
+    t0 = time.perf_counter()
+    dist.all_reduce(torch.zeros(1, device="cuda"))  # the communicator
+    torch.cuda.synchronize()
+    log(f"parallel: nccl group of 1 rank; first collective (communicator "
+        f"set-up) {time.perf_counter() - t0:.3f} s")
+    try:
+        parser = cli.build_parser()
+        pcfg = cli.config_from_args(parser.parse_args(
+            ["-1", r1, "-2", r2, "-o", "unused", "-c", str(N_CLUSTERS)])
+        ).feature
+        paths = {
+            "parallel-k15": run_sharded_step1(
+                "parallel-k15", {"interleaved": fq}, FeatureConfig(),
+                run["feature_dir"], SHARD_SCANS, ("cummin_reverse",)),
+            "parallel-k21": run_sharded_step1(
+                "parallel-k21", {"interleaved": fq},
+                FeatureConfig(kmer=LARGE_K), k21["run"]["feature_dir"],
+                SHARD_SCANS, ("cummin_reverse",)),
+            "parallel-paired": run_sharded_step1(
+                "parallel-paired", {"reads1": r1, "reads2": r2}, pcfg,
+                paired["feature_dir"], SHARD_SCANS, ("cummin_reverse",)),
+            "parallel-table": run_sharded_step1(
+                "parallel-table", {"interleaved": fq},
+                FeatureConfig(hist_impl="scatter"), run["feature_dir"], (),
+                ALL_SCANS),
+        }
+        paths["parallel-lloyd"] = check_sharded_lloyd(run)
+        paths["parallel-units"] = check_sharded_units(run)
+    finally:
+        dist.destroy_process_group()
+    gloo_s = check_gloo_step1(fq31, os.path.join(smoke_dir(), "k31"))
+    log("parallel: seconds " + json.dumps(
+        {**{k: round(v["seconds"], 3) for k, v in paths.items()},
+         "parallel-gloo": round(gloo_s, 3)}))
+    return paths
+
+
+# ---- phase 12 ------------------------------------------------------------
+
+# Athena's local contigs: pieces short enough for the builtin containment
+# filter to find contained (the mapper reads 1,024 bp of each; 1,000 bp
+# of slack), cut every 20 kb
+ATHENA_PIECE, ATHENA_STRIDE = 1_500, 20_000
+
+
+def merge_root(root: str, out: str) -> None:
+    """A driver-layout run root from phase 7's run ``out``: the seed
+    (1_metaspades_out) is its final_asm.fa, the binned contigs and the
+    low-abundance reassemblies are its own, and Athena's local contigs
+    are ATHENA_PIECE-bp pieces cut every ATHENA_STRIDE bp from
+    final_asm.fa plus one seeded random 5 kb contig (athena.asm.fa: each
+    contig's first half)."""
+    import glob
+    import numpy as np
+    from pangaea_tpu_torch.asm.fasta import iter_fasta, write_fasta
+    shutil.rmtree(root, ignore_errors=True)
+    final = os.path.join(out, "final_asm.fa")
+    os.makedirs(os.path.join(root, "1_metaspades_out"))
+    shutil.copy(final, os.path.join(root, "1_metaspades_out",
+                                    "contigs.fasta"))
+    os.makedirs(os.path.join(root, "3.clustering"))
+    shutil.copy(os.path.join(out, "3.clustering", "contigs.megahit.fa"),
+                os.path.join(root, "3.clustering"))
+    asm = os.path.join(root, "4.assembly")
+    os.makedirs(asm)
+    for p in (glob.glob(os.path.join(out, "4.assembly", "*.spades",
+                                     "contigs.fasta"))
+              + glob.glob(os.path.join(out, "4.assembly", "*.megahit",
+                                       "final.contigs.fa"))):
+        sub = os.path.join(asm, os.path.basename(os.path.dirname(p)))
+        os.makedirs(sub)
+        shutil.copy(p, sub)
+    olc = os.path.join(root, "2_athena_out", "results", "olc")
+    os.makedirs(olc)
+    contigs = list(iter_fasta(final))
+    pieces = [(f"{n.split()[0]}_{i}", s[i:i + ATHENA_PIECE])
+              for n, s in contigs for i in range(0, len(s), ATHENA_STRIDE)]
+    rng = np.random.RandomState(12)
+    pieces.append(("random", "".join("ACGT"[i]
+                                     for i in rng.randint(0, 4, 5000))))
+    write_fasta(os.path.join(olc, "flye-input-contigs.fa"), pieces)
+    write_fasta(os.path.join(olc, "athena.asm.fa"),
+                [(n.split()[0], s[:len(s) // 2]) for n, s in contigs])
+
+
+def phase_merge(run: dict) -> dict:
+    """``python -m pangaea_tpu_torch.pipeline.merge <root> metaspades
+    --device cuda`` on a root built from phase 7's output (without
+    quickmerge on PATH, merged_out.fasta is the olc result): the builtin
+    containment filter must launch cummax and drop pooled contigs (the
+    pieces cut from the seed); every file the merge writes must be
+    byte-equal to the same merge with device cpu on a second copy of the
+    root; merged_out.fasta keeps >= ASM_MIN_CONTIGS contigs and >=
+    ASM_MIN_BASES bases."""
+    import torch
+    from pangaea_tpu_torch.asm.fasta import iter_fasta
+    from pangaea_tpu_torch.kernels import scan
+    from pangaea_tpu_torch.pipeline import merge
+    roots = {dev: os.path.join(smoke_dir(), f"merge_{dev}")
+             for dev in ("cuda", "cpu")}
+    for root in roots.values():
+        merge_root(root, run["out"])
+    scan.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    merge.main([roots["cuda"], "metaspades", "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    check_launched("merge", launches, ("cummax",))
+    t1 = time.perf_counter()
+    stats = {}
+    merge.final_merge(roots["cpu"], "metaspades", device="cpu", stats=stats)
+    cpu_s = time.perf_counter() - t1
+    check_builtin("merge (cpu)", stats["backend"])
+
+    def tree(root):
+        out = {}
+        for d, _, files in os.walk(root):
+            for f in files:
+                with open(os.path.join(d, f), "rb") as fh:
+                    out[os.path.relpath(os.path.join(d, f), root)] = \
+                        fh.read()
+        return out
+
+    if tree(roots["cuda"]) != tree(roots["cpu"]):
+        raise AssertionError("merge: cuda and cpu merges differ")
+    merged = os.path.join(roots["cuda"], "4.assembly",
+                          "quickmerge_metaspades", "merged_out.fasta")
+    lengths = [len(s) for _, s in iter_fasta(merged)]
+    filt = os.path.join(roots["cuda"], "4.assembly", "olc_metaspades",
+                        "pre-flye-input-contigs.filt.fa")
+    pool = os.path.join(roots["cuda"], "4.assembly",
+                        "contigs.low_abd.binning.local.fa")
+    kept = sum(1 for _ in iter_fasta(filt))
+    pooled = sum(1 for _ in iter_fasta(pool))
+    log(f"merge: pipeline.merge metaspades on cuda in {secs:.3f} s (cpu "
+        f"{cpu_s:.3f} s), byte-equal; {kept} of {pooled} pooled contigs "
+        f"kept; merged_out.fasta {len(lengths)} contigs, {sum(lengths)} "
+        f"bases; scan launches {launches}")
+    if len(lengths) < ASM_MIN_CONTIGS or sum(lengths) < ASM_MIN_BASES:
+        raise AssertionError(f"merge: {len(lengths)} contigs, "
+                             f"{sum(lengths)} bases")
+    if kept >= pooled:
+        raise AssertionError("merge: the containment filter dropped none "
+                             "of the pieces cut from the seed")
+    return {"seconds": secs, "cpu_s": cpu_s, "launches": launches}
+
+
+# ---- the traced step 1 ---------------------------------------------------
+
+TRACE_TOP = 8
+
+
+def phase_trace(fq31: str) -> dict:
+    """Step 1 at k = 31 through Pipeline.run with PANGAEA_TPU_TRACE set:
+    one Chrome trace whose CUDA kernel events include the scan kernel.
+    Prints the kernels' count, the busiest kernels, and the device busy
+    share — the union of kernel, copy and memset intervals over the
+    'pipeline' range."""
+    import torch
+    from pangaea_tpu_torch.config import FeatureConfig, PangaeaConfig
+    from pangaea_tpu_torch.kernels import scan
+    from pangaea_tpu_torch.pipeline import Pipeline
+    out = os.path.join(smoke_dir(), "trace_run")
+    tdir = os.path.join(smoke_dir(), "trace")
+    for d in (out, tdir):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(out)
+    cfg = PangaeaConfig(interleaved_reads=fq31, output=out, steps="1",
+                        feature=FeatureConfig(kmer=31))
+    os.environ["PANGAEA_TPU_TRACE"] = tdir
+    try:
+        pipe = Pipeline(cfg, device="cuda")
+        scan.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        del os.environ["PANGAEA_TPU_TRACE"]
+    launches = launch_counts()
+    check_launched("trace", launches, FILL_SCANS)
+    files = os.listdir(tdir)
+    if len(files) != 1:
+        raise AssertionError(f"trace: {files} in {tdir}")
+    with open(os.path.join(tdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    scans = [e for e in kernels if "scan_kernel" in e.get("name", "")]
+    if not kernels or not scans:
+        raise AssertionError(f"trace: {len(kernels)} kernel events, "
+                             f"{len(scans)} of the scan kernel")
+    busy = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    union, end = 0.0, float("-inf")
+    for a, b in busy:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    span = max((e["dur"] for e in events if e.get("name") == "pipeline"
+                and "dur" in e), default=0.0)
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TRACE_TOP]
+    log(f"trace: step 1 at k = 31 traced in {secs:.3f} s; {files[0]}: "
+        f"{len(events)} events, {len(kernels)} kernels ({len(scans)} of "
+        f"scan_kernel); device busy {union / 1e3:.3f} ms of the "
+        f"{span / 1e3:.3f} ms pipeline range ({union / max(span, 1):.4f}); "
+        f"scan launches {launches}")
+    log("trace: busiest kernels (ms) " + json.dumps(
+        {k: round(v / 1e3, 3) for k, v in top}))
+    return {"seconds": secs, "launches": launches}
+
+
 def mapper_cummax_record(boundary, launches: int,
                          path: str = "assembly") -> dict:
     """cummax at the mapper's flat length: kernel vs plain version on the
@@ -1621,6 +2121,10 @@ def main() -> int:
     drivers = phase("driver", phase_driver, (r1, r2), ptruth, stlfr, fq,
                     os.path.join(run["out"], "final_asm.fa"))
     phase("step2", phase_step2, run, fq, truth)
+    shards = phase("parallel", phase_parallel, fq, run, r1, r2, paired, k21,
+                   fq31)
+    merged = phase("merge", phase_merge, run)
+    traced = phase("trace", phase_trace, fq31)
     k21_paths = {"k21": k21["run"]["launches"],
                  **{k: v["launches"] for k, v in k21["paths"].items()},
                  "k31": k31["launches"]}
@@ -1631,7 +2135,9 @@ def main() -> int:
                "assembly": asm["launches"], **k21_paths,
                **{k: v["launches"] for k, v in tables.items()},
                "auto-k": autok["launches"],
-               **{k: v["launches"] for k, v in drivers.items()}}
+               **{k: v["launches"] for k, v in drivers.items()},
+               **{k: v["launches"] for k, v in shards.items()},
+               "merge": merged["launches"], "trace": traced["launches"]}
     n_main = run["stats"]["sorted_windows"]
     n_paired = paired["stats"]["sorted_windows"]
     n_k21 = k21["run"]["stats"]["sorted_windows"]

@@ -151,8 +151,15 @@ class AssemblyConfig:
 
 @dataclass
 class ParallelConfig:
-    """Multi-device knobs (the reference is single-node CPU). The port
-    runs on one device; the distributed path is queued in ROADMAP.md."""
+    """Multi-device knobs (the reference is single-node CPU), read by
+    ``parallel.initialize_distributed``: one process per device in a
+    ``torch.distributed`` process group (NCCL on CUDA, gloo on the CPU).
+    ``coordinator_address`` is the rendezvous (``tcp://host:port``,
+    ``file://path`` or ``host:port``), ``num_processes`` the world size
+    and ``process_id`` this process's rank; without an address the group
+    reads torchrun's environment variables. ``data_axis`` and
+    ``num_devices`` name pangaea_tpu's mesh and have no use here: the
+    world size is the number of processes."""
 
     data_axis: str = "data"
     num_devices: Optional[int] = None  # None => all visible devices

@@ -353,6 +353,10 @@ class FeatureExtractor:
     # barcode groups per chunk: the per-chunk histograms are
     # (groups_per_chunk, columns) on the device
     groups_per_chunk = 8192
+    # past the cap: aggregate the spilled windows on the device
+    # (_SpillAgg) unless spill_agg='off'; a subclass whose joins are
+    # collective (parallel.ShardedFeatureExtractor) keeps the raw spill
+    _spill_aggregate = True
 
     def __init__(self, cfg: FeatureConfig, feature_dir: str,
                  device: DeviceLike = None):
@@ -547,6 +551,36 @@ class FeatureExtractor:
     def _to_host(x: HostOrDevice) -> np.ndarray:
         return x if isinstance(x, np.ndarray) else x.cpu().numpy()
 
+    # ---- hooks (parallel.ShardedFeatureExtractor overrides them) -----------
+
+    def _device_batch(self, host):
+        """This extractor's rows of one host batch, on the device."""
+        return self._upload(host)
+
+    def _local_rows(self, rows: int) -> int:
+        """How many of the first ``rows`` rows of a batch are this
+        extractor's (all of them on one device)."""
+        return rows
+
+    def _sortjoin_window_cap(self) -> int:
+        """Windows one in-cap sort-join may hold, summed over devices."""
+        return self.cfg.sortjoin_max_windows
+
+    def _sortjoin_pad_size(self, n: int) -> int:
+        """Padded length of the in-cap join of ``n`` windows."""
+        return sortjoin_pad_size(n)
+
+    def _reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of a device tensor over the devices that hold parts of the
+        input (itself on one device): the per-group histograms, the
+        ranged join's key-range counts and valid-window count."""
+        return t
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Concatenation of a 1-D device tensor over the devices, in rank
+        order (itself on one device): the ranged join's key sample."""
+        return t
+
     # ---- sort-join ----------------------------------------------------------
 
     def _pad_part(self, n: int, weighted: bool) -> Part:
@@ -585,7 +619,7 @@ class FeatureExtractor:
         ncols = num_canonical_kmers(c.tnf_kmer)
         lut = rank_lut_tensor(c.tnf_kmer, dev)
         G = self.groups_per_chunk
-        cap = c.sortjoin_max_windows
+        cap = self._sortjoin_window_cap()
         rows = c.reads_per_batch
         wrow = self.row_len - c.kmer + 1
         per_batch = rows * wrow
@@ -603,14 +637,17 @@ class FeatureExtractor:
             log.info("sort-join spill mode: ~%d windows > device cap %d",
                      est, cap)
             spill = True
-            if c.spill_agg != "off":
+            if c.spill_agg != "off" and self._spill_aggregate:
                 agg = _SpillAgg(self, weighted, per_batch)
-        # device parts in cap; host numpy parts once spilled raw
+        # device parts in cap; host numpy parts once spilled raw.
+        # ``total`` counts the windows of whole batches, which every
+        # device reads, so every device takes the same spill decisions;
+        # ``local`` counts this extractor's windows
         keys_parts: List[Tuple] = []
         chunk_meta = []  # (names, [(seg_ids, kept_rows)], thist)
         segs = []
         thist = None
-        total = 0
+        total = local = 0
         ranges = 0
         try:
             for kind, payload in prefetch(self._host_tensors(events),
@@ -624,7 +661,7 @@ class FeatureExtractor:
                              sum(len(m[0]) for m in chunk_meta), total)
                     continue
                 b, host = payload
-                codes, lengths, seg, cont, *lowq = self._upload(host)
+                codes, lengths, seg, cont, *lowq = self._device_batch(host)
                 if thist is None:
                     thist = self._zeros(G, ncols)
                 # a tail batch's trailing pad rows are pure sentinel sort
@@ -633,6 +670,7 @@ class FeatureExtractor:
                 if b.rows_used < rows:
                     kept_rows = min(rows, -(-b.rows_used // _TRIM_QUANTUM)
                                     * _TRIM_QUANTUM)
+                mine = self._local_rows(kept_rows)
                 if weighted:
                     # a missing plane would silently give UNMASKED counts
                     if not lowq:
@@ -650,13 +688,14 @@ class FeatureExtractor:
                     agg.add_part(part)
                     total += per_batch
                 else:
-                    if kept_rows < rows:
-                        part = tuple(w[:kept_rows * wrow] for w in part)
+                    if mine < len(seg):
+                        part = tuple(w[:mine * wrow] for w in part)
                     if spill:
                         part = tuple(w.cpu().numpy() for w in part)
                     keys_parts.append(part)
-                    total += len(part[0])
-                segs.append((seg[:kept_rows], kept_rows))
+                    total += kept_rows * wrow
+                    local += len(part[0])
+                segs.append((seg[:mine], mine))
                 tnf_histogram_segsum(thist, codes, lengths, seg, cont,
                                      k=c.tnf_kmer, overlap=overlap,
                                      rank_lut=lut)
@@ -664,7 +703,7 @@ class FeatureExtractor:
                     log.warning("sort-join overflow (%d windows > cap %d); "
                                 "spilling and continuing (the stream is "
                                 "still read once)", total, cap)
-                    if c.spill_agg != "off":
+                    if c.spill_agg != "off" and self._spill_aggregate:
                         agg = _SpillAgg(self, weighted, per_batch)
                         for p in keys_parts:
                             short = per_batch - len(p[0])
@@ -706,9 +745,9 @@ class FeatureExtractor:
                 def bins_at(bi, off, kw):
                     return self._to_device(bins_host[off:off + kw])
             else:
-                npad = sortjoin_pad_size(total)
-                if npad > total:
-                    keys_parts.append(self._pad_part(npad - total, weighted))
+                npad = self._sortjoin_pad_size(local)
+                if npad > local:
+                    keys_parts.append(self._pad_part(npad - local, weighted))
                 cols = [torch.cat([p[i] for p in keys_parts])
                         for i in range(len(keys_parts[0]))]
                 del keys_parts
@@ -737,8 +776,8 @@ class FeatureExtractor:
                 g = len(cnames)
                 abd_dev.append(hist[:g])
                 tnf_dev.append(thist[:g])
-            abd_all = torch.cat(abd_dev).cpu().numpy()
-            tnf_all = torch.cat(tnf_dev).cpu().numpy()
+            abd_all = self._reduce(torch.cat(abd_dev)).cpu().numpy()
+            tnf_all = self._reduce(torch.cat(tnf_dev)).cpu().numpy()
             t3 = time.perf_counter()
         finally:
             if agg is not None:
@@ -782,7 +821,12 @@ class FeatureExtractor:
         ``weighted`` each part is (keys, weights) and the join is
         :func:`sortjoin_bins_weighted`; weights ride the partition, so
         per-range weight sums stay exact. Sets ``_last_ranges`` to the
-        number of ranges joined."""
+        number of ranges joined.
+
+        Split over devices (the sharded extractor), the valid-key count
+        and the range counts are summed and the sample gathered over
+        them, so every device joins the same ranges, each through the
+        collective join, even a range it holds no key of."""
         c = self.cfg
         sent = kmer_key_sentinel(c.kmer)
         v = np.concatenate([p[0] for p in host_parts])
@@ -792,10 +836,11 @@ class FeatureExtractor:
         bins_all = np.full(N, -1, np.int32)
         self._last_ranges = 0
         valid = v < sent
-        nval = int(valid.sum())
+        nval = int(self._reduce(torch.tensor([int(valid.sum())],
+                                             device=self.device)))
         if nval == 0:
             return bins_all
-        cap = c.sortjoin_max_windows
+        cap = self._sortjoin_window_cap()
         # 5% headroom so quantile jitter rarely pushes a range past the cap
         nparts = max(1, -(-nval // max(1, cap * 19 // 20)))
         if nparts > 1:
@@ -803,7 +848,8 @@ class FeatureExtractor:
             # just to stride them away
             step = max(1, N // 1_000_000)
             vs = v[::step]
-            sample = np.sort(vs[vs < sent])
+            sample = np.sort(self._to_host(self._gather(
+                self._to_device(vs[vs < sent]))))
             qpos = (np.arange(1, nparts) * len(sample)) // nparts
             bounds = np.unique(sample[qpos])
         else:
@@ -812,7 +858,8 @@ class FeatureExtractor:
         dt = np.uint8 if inval_digit < 255 else np.int32
         digits = np.searchsorted(bounds, v, side="right").astype(dt)
         digits[~valid] = inval_digit
-        counts = np.bincount(digits, minlength=inval_digit + 1)[:inval_digit]
+        counts = self._to_host(self._reduce(self._to_device(np.bincount(
+            digits, minlength=inval_digit + 1)[:inval_digit])))
         if counts.max() > cap:
             log.warning("chunked sort-join: a key range holds %d windows > "
                         "cap %d (hot keys cannot split across ranges); "
@@ -823,9 +870,9 @@ class FeatureExtractor:
         pending = None  # (idx, device bins)
         for p in range(len(counts)):
             # one flatnonzero scan per range, not an argsort of all digits
-            idx = np.flatnonzero(digits == p)
-            if idx.size == 0:
+            if counts[p] == 0:
                 continue
+            idx = np.flatnonzero(digits == p)
             keys = self._to_device(v[idx])
             wts = self._to_device(w_all[idx]) if weighted else None
             dev_bins = self._bins(keys, wts)
@@ -855,16 +902,24 @@ class FeatureExtractor:
         interleaved input wins when both forms are given."""
         c = self.cfg
         table = make_global_table(c.kmer, self.device)
+        for codes, lengths, _, cont in self._global_batches(
+                reads1, reads2, interleaved):
+            count_kmers_global(table, codes, lengths, cont, k=c.kmer,
+                               overlap=c.kmer - 1)
+        return table
+
+    def _global_batches(self, reads1: str, reads2: str, interleaved: str):
+        """The global pass's device batches (codes, lengths, seg_ids,
+        cont): every read of the input file(s) through the native
+        reader, quality-masked on paired input."""
+        c = self.cfg
         paths = [interleaved] if interleaved else [reads1, reads2]
         mq = c.min_qual_char if (reads1 and reads2) else None
         batches = native_seq_batches(paths, self.row_len, c.reads_per_batch,
                                      min_qual_char=mq)
         events = (("batch", b) for b in batches)
         for _, (_, host) in prefetch(self._host_tensors(events), depth=4):
-            codes, lengths, _, cont = self._upload(host)
-            count_kmers_global(table, codes, lengths, cont, k=c.kmer,
-                               overlap=c.kmer - 1)
-        return table
+            yield self._device_batch(host)
 
     def group_features(self, table: torch.Tensor, reads1: str = "",
                        reads2: str = "", interleaved: str = "") -> Features:
@@ -892,7 +947,7 @@ class FeatureExtractor:
                 hist = self._zeros(G, c.vector_size)
                 thist = self._zeros(G, ncols)
                 continue
-            codes, lengths, seg, cont, *_ = self._upload(payload[1])
+            codes, lengths, seg, cont, *_ = self._device_batch(payload[1])
             abundance_histogram(hist, table, codes, lengths, seg, cont,
                                 k=c.kmer, window=c.window_size,
                                 vector_size=c.vector_size, overlap=overlap)
@@ -902,8 +957,9 @@ class FeatureExtractor:
             return (np.array([], dtype=object),
                     np.zeros((0, c.vector_size), np.int32),
                     np.zeros((0, ncols), np.int32))
-        return (np.array(names), torch.cat(abd_dev).cpu().numpy(),
-                torch.cat(tnf_dev).cpu().numpy())
+        return (np.array(names),
+                self._reduce(torch.cat(abd_dev)).cpu().numpy(),
+                self._reduce(torch.cat(tnf_dev)).cpu().numpy())
 
     def _table_features(self, reads1: str, reads2: str,
                         interleaved: str) -> Features:
@@ -1026,7 +1082,7 @@ class FeatureExtractor:
         overlaps the next pipeline step. The marker is written only AFTER
         both files land (a crash mid-save re-runs step 1), and the caller
         must invoke :meth:`wait_save` before relying on the artifacts."""
-        if os.path.exists(self.abd_gz) and os.path.exists(self.tnf_gz):
+        if self._features_exist():
             log.info("features already extracted, loading")
             return self.load_features()
         self._rl = (self._auto_row_len(reads1, reads2, interleaved)
@@ -1053,6 +1109,9 @@ class FeatureExtractor:
         else:
             self._save(names, abd, tnf)
         return names, abd, tnf
+
+    def _features_exist(self) -> bool:
+        return os.path.exists(self.abd_gz) and os.path.exists(self.tnf_gz)
 
     def wait_save(self) -> None:
         """Join a ``defer_save`` background write; re-raises its error

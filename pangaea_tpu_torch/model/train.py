@@ -167,6 +167,26 @@ class _StopFlags:
         return self.events[i] is None or self.events[i].query()
 
 
+def flat_state(model: torch.nn.Module) -> torch.Tensor:
+    """The model's state dict as one flat device tensor."""
+    return torch.cat([v.reshape(-1) for v in model.state_dict().values()])
+
+
+class FusedState:
+    """The fused loop's device state: the EarlyStopping state (best score
+    float32, counter, stopped) and the best state dict, flat."""
+
+    def __init__(self, model: torch.nn.Module, cfg: ModelConfig,
+                 device: torch.device):
+        self.best_flat = torch.zeros_like(flat_state(model))
+        self.best_score = torch.tensor(-np.inf, dtype=torch.float32,
+                                       device=device)
+        self.counter = torch.zeros((), dtype=torch.int32, device=device)
+        self.stopped = torch.zeros((), dtype=torch.bool, device=device)
+        self.delta32 = torch.tensor(np.float32(cfg.early_stop_delta),
+                                    device=device)
+
+
 class VAETrainer:
     def __init__(self, model: VAE, cfg: ModelConfig,
                  device: DeviceLike = None):
@@ -180,12 +200,60 @@ class VAETrainer:
         # per-fit phase timers (seconds) of the fused loop
         self.phase_times: Dict[str, float] = {}
 
+    def optimizer(self) -> torch.optim.Adam:
+        """Adam with torch's coupled L2 over the model's parameters."""
+        return torch.optim.Adam(self.model.parameters(), lr=self.cfg.lr,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=self.cfg.weight_decay)
+
     def _generator(self, offset: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(
             self.cfg.seed + offset)
 
-    def _val_total(self, gen, abd_all, tnf_all, vmat, vcounts
-                   ) -> torch.Tensor:
+    def _losses(self, gen, abd_all, tnf_all, rows, shard=None, draws=None
+                ) -> Dict[str, torch.Tensor]:
+        """The loss terms of one forward pass over the batch ``rows``
+        (device int64 indices) in the model's current mode. With a
+        ``shard`` (``parallel.dist``'s data-parallel rows) this rank runs
+        its rows of the batch, with the masks and noise drawn for the
+        whole batch (or taken from the ``draws`` iterator) and BatchNorm
+        summed over the ranks, and each term is its share of the global
+        mean."""
+        model = self.model
+        if shard is None:
+            out = model(abd_all[rows], tnf_all[rows], generator=gen)
+            return unlabeled_loss(out, model, self.wa, self.wt, self.wkl)
+        n = rows.numel()
+        masks, noise = (next(draws) if draws is not None else
+                        model.draws(n, self.device, gen, model.training))
+        lo, hi = shard.span(n)
+        local = rows[lo:hi]
+        with shard.batchnorm(model):
+            out = model(abd_all[local], tnf_all[local], noise=noise[lo:hi],
+                        drop_masks=None if masks is None
+                        else [m[lo:hi] for m in masks])
+        return unlabeled_loss(out, model, self.wa, self.wt, self.wkl,
+                              denom=n)
+
+    def _train_batch(self, opt, gen, abd_all, tnf_all, rows, shard=None,
+                     draws=None) -> torch.Tensor:
+        """One Adam step on the batch ``rows``; returns its (4,) loss
+        stats (total, abd_rec, tnf_rec, kl_loss). With a ``shard`` the
+        gradients and the stats are summed over the ranks before the
+        step, so every rank takes the same step."""
+        model = self.model
+        losses = self._losses(gen, abd_all, tnf_all, rows, shard, draws)
+        opt.zero_grad(set_to_none=True)
+        losses["total"].backward()
+        if shard is not None:
+            shard.sum_grads(model)
+        opt.step()
+        stats = torch.stack([losses[k].detach() for k in
+                             ("total", "abd_rec", "tnf_rec", "kl_loss")])
+        return stats if shard is None else shard.sum(stats)
+
+    def _val_total(self, gen, abd_all, tnf_all, vmat, vcounts, shard=None,
+                   draws=None) -> torch.Tensor:
         """Mean over val batches of the per-batch loss totals (a 0-d
         float32 tensor on the device). ``vmat`` holds host or device
         row indices."""
@@ -198,10 +266,38 @@ class VAETrainer:
                     continue
                 rows = torch.as_tensor(bidx[:cnt]).to(self.device,
                                                       torch.int64)
-                out = self.model(abd_all[rows], tnf_all[rows], generator=gen)
-                totals.append(unlabeled_loss(out, self.model, self.wa,
-                                             self.wt, self.wkl)["total"])
+                total = self._losses(gen, abd_all, tnf_all, rows, shard,
+                                     draws)["total"]
+                totals.append(total if shard is None else shard.sum(total))
         return torch.stack(totals).mean()
+
+    def _run_unit(self, es: "FusedState", opt, gen, abd_all, tnf_all,
+                  counts, t_rows, v_rows, vcounts, shard=None, draws=None):
+        """One unit of the fused loop — the train batches ``t_rows[j,
+        :counts[j]]``, the val pass over ``v_rows`` and the EarlyStopping
+        transition on the device state ``es`` (a unit launched after the
+        stop changes nothing there). Returns the unit's (8,) row — val
+        loss, four train stats, improved, stopped, ran — and its stop
+        flag."""
+        model, dev = self.model, self.device
+        model.train()
+        stats = torch.zeros(4, device=dev)
+        for j, cnt in enumerate(counts):
+            stats += self._train_batch(opt, gen, abd_all, tnf_all,
+                                       t_rows[j, :cnt], shard, draws)
+        val = self._val_total(gen, abd_all, tnf_all, v_rows, vcounts,
+                              shard, draws)
+        live = ~es.stopped
+        improved = live & ~((-val - es.best_score) <= es.delta32)
+        es.counter = torch.where(improved, 0, torch.where(
+            live, es.counter + 1, es.counter))
+        stop = live & ~improved & (es.counter >= self.cfg.patience)
+        es.best_score = torch.where(improved, -val, es.best_score)
+        es.best_flat = torch.where(improved, flat_state(model), es.best_flat)
+        es.stopped = es.stopped | stop
+        row = torch.cat([val[None], stats / len(counts),
+                         torch.stack([improved, stop, live]).float()])
+        return row, stop
 
     def fit(self, dataset: BarcodeDataset, model_dir: str,
             rng: Optional[np.random.RandomState] = None) -> StateDict:
@@ -229,9 +325,7 @@ class VAETrainer:
             load_into(model, state)
             return state
 
-        opt = torch.optim.Adam(model.parameters(), lr=cfg.lr,
-                               betas=(0.9, 0.999), eps=1e-8,
-                               weight_decay=cfg.weight_decay)
+        opt = self.optimizer()
         gen = self._generator(1)
         abd_all = torch.from_numpy(dataset.abd).to(self.device)
         tnf_all = torch.from_numpy(dataset.tnf).to(self.device)
@@ -270,15 +364,8 @@ class VAETrainer:
                 for j in range(done, done + nb):
                     rows = torch.from_numpy(tmat[j, :tcounts[j]]).to(
                         self.device, torch.int64)
-                    out = model(abd_all[rows], tnf_all[rows], generator=gen)
-                    losses = unlabeled_loss(out, model, self.wa, self.wt,
-                                            self.wkl)
-                    opt.zero_grad(set_to_none=True)
-                    losses["total"].backward()
-                    opt.step()
-                    stats += torch.stack([losses[k].detach() for k in
-                                          ("total", "abd_rec", "tnf_rec",
-                                           "kl_loss")])
+                    stats += self._train_batch(opt, gen, abd_all, tnf_all,
+                                               rows)
                 done += nb
                 if nb == ev:  # the reference evals only on full cadences
                     val_loss = run_val()
@@ -324,9 +411,7 @@ class VAETrainer:
             load_into(model, state)
             return state
 
-        opt = torch.optim.Adam(model.parameters(), lr=cfg.lr,
-                               betas=(0.9, 0.999), eps=1e-8,
-                               weight_decay=cfg.weight_decay)
+        opt = self.optimizer()
         gen = self._generator(1)
         abd_all = torch.from_numpy(dataset.abd).to(dev)
         tnf_all = torch.from_numpy(dataset.tnf).to(dev)
@@ -370,16 +455,7 @@ class VAETrainer:
 
         names = list(model.state_dict())
         shapes = [v.shape for v in model.state_dict().values()]
-
-        def flat_state() -> torch.Tensor:
-            return torch.cat([v.reshape(-1)
-                              for v in model.state_dict().values()])
-
-        best_flat = torch.zeros_like(flat_state())
-        best_score = torch.tensor(-np.inf, dtype=torch.float32, device=dev)
-        counter = torch.zeros((), dtype=torch.int32, device=dev)
-        stopped = torch.zeros((), dtype=torch.bool, device=dev)
-        delta32 = torch.tensor(np.float32(cfg.early_stop_delta), device=dev)
+        es = FusedState(model, cfg, dev)
         rows_dev = torch.zeros((C, 8), dtype=torch.float32, device=dev)
         flags = _StopFlags(C, dev)
         best: Dict[str, Optional[StateDict]] = {"state": None}
@@ -390,37 +466,6 @@ class VAETrainer:
             if cuda:
                 t = t.pin_memory()
             return t.to(dev, non_blocking=True).long()
-
-        def run_unit(i: int, counts: np.ndarray, t_idx, v_idx) -> None:
-            nonlocal best_flat, best_score, counter, stopped
-            model.train()
-            stats = torch.zeros(4, device=dev)
-            for j, cnt in enumerate(counts):
-                rows = t_idx[i, j, :cnt]
-                out = model(abd_all[rows], tnf_all[rows], generator=gen)
-                losses = unlabeled_loss(out, model, self.wa, self.wt,
-                                        self.wkl)
-                opt.zero_grad(set_to_none=True)
-                losses["total"].backward()
-                opt.step()
-                stats += torch.stack([losses[k].detach() for k in
-                                      ("total", "abd_rec", "tnf_rec",
-                                       "kl_loss")])
-            val = self._val_total(gen, abd_all, tnf_all, v_idx[i], vcounts)
-            # the EarlyStopping transition; a unit launched after the
-            # stop ("live" false) changes nothing
-            live = ~stopped
-            improved = live & ~((-val - best_score) <= delta32)
-            counter = torch.where(improved, 0,
-                                  torch.where(live, counter + 1, counter))
-            stop = live & ~improved & (counter >= cfg.patience)
-            best_score = torch.where(improved, -val, best_score)
-            best_flat = torch.where(improved, flat_state(), best_flat)
-            stopped = stopped | stop
-            rows_dev[i] = torch.cat([val[None], stats / len(counts),
-                                     torch.stack([improved, stop, live]
-                                                 ).float()])
-            flags.put(i, stop)
 
         def drain_ckpt() -> None:
             if not pending:
@@ -466,7 +511,10 @@ class VAETrainer:
                     polled += 1
                 if halt:
                     break
-                run_unit(i, counts, t_idx, v_idx)
+                rows_dev[i], stop = self._run_unit(
+                    es, opt, gen, abd_all, tnf_all, counts, t_idx[i],
+                    v_idx[i], vcounts)
+                flags.put(i, stop)
                 pt["units"] += 1
             pt["dispatch"] += time.perf_counter() - t0
             pt["chunks"] += 1
@@ -496,9 +544,9 @@ class VAETrainer:
             done_units += len(chunk)
             if any_improved:
                 t0 = time.perf_counter()
-                host = torch.empty(best_flat.shape, dtype=best_flat.dtype,
-                                   pin_memory=cuda)
-                host.copy_(best_flat, non_blocking=True)
+                host = torch.empty(es.best_flat.shape,
+                                   dtype=es.best_flat.dtype, pin_memory=cuda)
+                host.copy_(es.best_flat, non_blocking=True)
                 done = torch.cuda.Event() if cuda else None
                 if cuda:
                     done.record()

@@ -68,7 +68,16 @@ class BF16Matmul(torch.autograd.Function):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm1d with pangaea_tpu's semantics (see module docstring)."""
+    """BatchNorm1d with pangaea_tpu's semantics (see module docstring).
+
+    ``row_reduce``, when set, is a differentiable sum over the ranks that
+    hold the batch's rows (``parallel.dist`` sets it for a data-parallel
+    step): the mean is the global sum over the global row count, then the
+    variance the global sum of squared deviations from that mean over the
+    same count — the two passes of the one-device form, never
+    E[x^2] - E[x]^2."""
+
+    row_reduce = None
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -80,13 +89,22 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            n = x.shape[0]
-            mean = x.mean(0)
-            var = (x - mean).square().mean(0)
+            if self.row_reduce is None:
+                n = x.shape[0]
+                mean = x.mean(0)
+                var = (x - mean).square().mean(0)
+                bessel = n / max(n - 1.0, 1.0)
+            else:
+                red = self.row_reduce
+                tot = red(torch.cat([x.sum(0), x.new_full((1,), x.shape[0])]))
+                n = tot[-1]
+                mean = tot[:-1] / n
+                var = red((x - mean).square().sum(0)) / n
+                bessel = n.detach() / torch.clamp(n.detach() - 1.0, min=1.0)
             xhat = (x - mean) * torch.rsqrt(var + self.eps)
             with torch.no_grad():
                 m = self.momentum
-                unbiased = var * (n / max(n - 1.0, 1.0))
+                unbiased = var * bessel
                 self.running_mean.copy_((1 - m) * self.running_mean
                                         + m * mean)
                 self.running_var.copy_((1 - m) * self.running_var
@@ -164,14 +182,26 @@ class VAE(nn.Module):
                                 torch.zeros_like(x))
         return x
 
-    def _drop_masks(self, x: torch.Tensor, generator) -> Optional[list]:
+    def _drop_masks(self, n: int, device, generator) -> Optional[list]:
         if self.dropout == 0.0:
             return None
         keep = 1.0 - self.dropout
-        shapes = ([(x.shape[0], h) for h in self.hidden_sizes]
-                  + [(x.shape[0], h) for h in self.hidden_sizes[::-1]])
-        return [torch.rand(s, generator=generator, device=x.device) < keep
+        shapes = ([(n, h) for h in self.hidden_sizes]
+                  + [(n, h) for h in self.hidden_sizes[::-1]])
+        return [torch.rand(s, generator=generator, device=device) < keep
                 for s in shapes]
+
+    def draws(self, n: int, device, generator: torch.Generator,
+              train: bool) -> Tuple[Optional[list], torch.Tensor]:
+        """The (dropout keep-masks, latent noise) a forward pass of ``n``
+        rows draws from ``generator``, in its order: the masks (train
+        mode, dropout on) first, then the noise. A data-parallel step
+        draws them for the whole batch and gives each rank its rows, so
+        the world size does not change the draw."""
+        masks = self._drop_masks(n, device, generator) if train else None
+        noise = torch.randn((n, self.latent_dim), generator=generator,
+                            device=device)
+        return masks, noise
 
     def forward(self, abd: torch.Tensor, tnf: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
@@ -191,7 +221,7 @@ class VAE(nn.Module):
         nh = len(self.hidden_sizes)
         x = torch.cat([abd, tnf], dim=1)
         if self.training and drop_masks is None:
-            drop_masks = self._drop_masks(x, generator)
+            drop_masks = self._drop_masks(x.shape[0], x.device, generator)
         if not self.training:
             drop_masks = None
         h = self._stack(self.enc, self.enc_bn, x,
@@ -224,14 +254,21 @@ def loss_weights(model: VAE, alpha: float = 0.1, w_kl: float = 0.015
 
 
 def unlabeled_loss(out_net: Dict[str, torch.Tensor], model: VAE, wa: float,
-                   wt: float, wkl: float) -> Dict[str, torch.Tensor]:
-    """VAENET.unlabeled_loss (VAENET.py:161-180): means over the batch."""
+                   wt: float, wkl: float, denom=None
+                   ) -> Dict[str, torch.Tensor]:
+    """VAENET.unlabeled_loss (VAENET.py:161-180): means over the batch.
+    With ``denom`` (a data-parallel step's global row count) each term is
+    this rank's row sum over ``denom``: its share of the global mean."""
     eps = model.loss_eps
     ce_abd = -(torch.log(out_net["abd_rec"] + eps) * out_net["abd"]).sum(-1)
     ce_tnf = -(torch.log(out_net["tnf_rec"] + eps) * out_net["tnf"]).sum(-1)
     mu, logsigma = out_net["mu"], out_net["logsigma"]
     kl = -0.5 * (1 + logsigma - mu.square() - torch.exp(logsigma)).sum(-1)
-    loss_abd, loss_tnf, loss_kl = ce_abd.mean(), ce_tnf.mean(), kl.mean()
+    if denom is None:
+        loss_abd, loss_tnf, loss_kl = ce_abd.mean(), ce_tnf.mean(), kl.mean()
+    else:
+        loss_abd, loss_tnf, loss_kl = (ce_abd.sum() / denom,
+                                       ce_tnf.sum() / denom, kl.sum() / denom)
     total = wa * loss_abd + wt * loss_tnf + wkl * loss_kl
     return {"total": total, "abd_rec": loss_abd, "tnf_rec": loss_tnf,
             "kl_loss": loss_kl}

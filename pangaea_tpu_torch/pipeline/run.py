@@ -29,7 +29,7 @@ import numpy as np
 from pangaea_tpu_torch.config import PangaeaConfig
 from pangaea_tpu_torch.features import FeatureExtractor
 from pangaea_tpu_torch.io.extract_reads import extract_reads
-from pangaea_tpu_torch.profiling import StageTimer
+from pangaea_tpu_torch.profiling import StageTimer, trace
 from pangaea_tpu_torch.utils import DeviceLike, replacing, resolve_device
 
 log = logging.getLogger(__name__)
@@ -202,39 +202,40 @@ class Pipeline:
         steps = cfg.steps.split(",")
         timer = self.timer
         feats = None
-        if "1" not in steps:
-            log.info("skip step 1: feature extraction")
-        elif check_step_finished(cfg.output, "1"):
-            log.info("step 1: feature extraction finished")
-        else:
-            with timer.stage("step1_features"):
-                feats = self.step1_features()
+        with trace("pipeline"):
+            if "1" not in steps:
+                log.info("skip step 1: feature extraction")
+            elif check_step_finished(cfg.output, "1"):
+                log.info("step 1: feature extraction finished")
+            else:
+                with timer.stage("step1_features"):
+                    feats = self.step1_features()
 
-        if "2" not in steps:
-            log.info("skip step 2: training")
-        elif check_step_finished(cfg.output, "2"):
-            log.info("step 2: training finished")
-        else:
-            with timer.stage("step2_train"):
-                self.step2_train(*(feats or (None, None, None)))
+            if "2" not in steps:
+                log.info("skip step 2: training")
+            elif check_step_finished(cfg.output, "2"):
+                log.info("step 2: training finished")
+            else:
+                with timer.stage("step2_train"):
+                    self.step2_train(*(feats or (None, None, None)))
 
-        if "3" not in steps:
-            log.info("skip step 3: clustering")
-        elif check_step_finished(cfg.output, "3"):
-            log.info("step 3: clustering finished")
-        else:
-            log.info("start clustering")
-            with timer.stage("step3_cluster"):
-                self.step3_cluster()
+            if "3" not in steps:
+                log.info("skip step 3: clustering")
+            elif check_step_finished(cfg.output, "3"):
+                log.info("step 3: clustering finished")
+            else:
+                log.info("start clustering")
+                with timer.stage("step3_cluster"):
+                    self.step3_cluster()
 
-        if "4" not in steps:
-            log.info("skip step 4: assembly")
-        elif check_step_finished(cfg.output, "4"):
-            log.info("step 4: assembly finished")
-        else:
-            log.info("start assembly")
-            with timer.stage("step4_assemble"):
-                self.step4_assemble()
-        self.finish()
+            if "4" not in steps:
+                log.info("skip step 4: assembly")
+            elif check_step_finished(cfg.output, "4"):
+                log.info("step 4: assembly finished")
+            else:
+                log.info("start assembly")
+                with timer.stage("step4_assemble"):
+                    self.step4_assemble()
+            self.finish()
         timer.dump(os.path.join(cfg.output, "metrics.json"))
         log.info("program finished successfully")

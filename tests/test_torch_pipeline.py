@@ -196,12 +196,18 @@ def test_port_imports_no_jax_and_no_pangaea_tpu():
         "          'asm.circular_logic', 'asm.circularize', 'asm.final',\n"
         "          'asm.diversity', 'cluster.k_selection', 'pipeline.run',\n"
         "          'io.preprocess', 'io.hybrid', 'io.sim', 'model.train',\n"
-        "          'pipeline.driver'):\n"
+        "          'pipeline.driver', 'pipeline.merge', 'parallel',\n"
+        "          'parallel.mesh', 'parallel.dist', 'parallel.multihost',\n"
+        "          'profiling'):\n"
         "    assert 'pangaea_tpu_torch.' + m in sys.modules, m\n"
         "from pangaea_tpu_torch.pipeline.run import Pipeline\n"
         "from pangaea_tpu_torch.cluster import select_k_with_bic\n"
         "from pangaea_tpu_torch.pipeline.driver import main\n"
         "from pangaea_tpu_torch.io.fastq import barcode_sort_interleaved\n"
+        "from pangaea_tpu_torch.parallel import (ShardedFeatureExtractor,\n"
+        "    initialize_distributed, sharded_lloyd)\n"
+        "from pangaea_tpu_torch.pipeline.merge import final_merge\n"
+        "assert callable(final_merge) and callable(sharded_lloyd)\n"
         "assert callable(Pipeline._estimate_k)\n"
         "assert callable(select_k_with_bic)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
