@@ -60,7 +60,6 @@ import logging
 import os
 import shutil
 import tempfile
-import time
 import zlib
 from typing import Iterator, List, Optional, Tuple, Union
 
@@ -97,6 +96,7 @@ from pangaea_tpu_torch.kernels.features import (abundance_histogram,
                                                 spill_aggregate_weighted,
                                                 tnf_histogram_segsum)
 from pangaea_tpu_torch.native import NativeFastqReader
+from pangaea_tpu_torch.profiling import span
 from pangaea_tpu_torch.utils import (DeviceLike, replacing, resolve_device,
                                      synchronize)
 
@@ -627,158 +627,160 @@ class FeatureExtractor:
         # weighting requires paired-only input
         weighted = bool(reads1 and reads2 and not interleaved
                         and c.min_qual_char)
-        t0 = time.perf_counter()
-        io, events = self._group_events(reads1, reads2, interleaved)
-        spill = False
         agg: Optional[_SpillAgg] = None
-        est = self._estimate_stream_windows(
-            interleaved if interleaved else (reads1, reads2))
-        if est is not None and est * 21 // 20 > cap:
-            log.info("sort-join spill mode: ~%d windows > device cap %d",
-                     est, cap)
-            spill = True
-            if c.spill_agg != "off" and self._spill_aggregate:
-                agg = _SpillAgg(self, weighted, per_batch)
-        # device parts in cap; host numpy parts once spilled raw.
-        # ``total`` counts the windows of whole batches, which every
-        # device reads, so every device takes the same spill decisions;
-        # ``local`` counts this extractor's windows
-        keys_parts: List[Tuple] = []
-        chunk_meta = []  # (names, [(seg_ids, kept_rows)], thist)
-        segs = []
-        thist = None
-        total = local = 0
-        ranges = 0
         try:
-            for kind, payload in prefetch(self._host_tensors(events),
-                                          depth=4):
-                if kind == "chunk":
-                    chunk_meta.append((payload, segs,
-                                       thist if thist is not None
-                                       else self._zeros(G, ncols)))
-                    segs, thist = [], None
-                    log.info("sortjoin pass A: %d barcodes, %d windows",
-                             sum(len(m[0]) for m in chunk_meta), total)
-                    continue
-                b, host = payload
-                codes, lengths, seg, cont, *lowq = self._device_batch(host)
-                if thist is None:
-                    thist = self._zeros(G, ncols)
-                # a tail batch's trailing pad rows are pure sentinel sort
-                # cost: keep only the filled rows, quantized
-                kept_rows = rows
-                if b.rows_used < rows:
-                    kept_rows = min(rows, -(-b.rows_used // _TRIM_QUANTUM)
-                                    * _TRIM_QUANTUM)
-                mine = self._local_rows(kept_rows)
-                if weighted:
-                    # a missing plane would silently give UNMASKED counts
-                    if not lowq:
-                        raise RuntimeError("masked sort-join batch arrived "
-                                           "without a lowq plane")
-                    part = batch_kmer_keys_weighted(
-                        codes, lowq[0], lengths, cont, k=c.kmer,
-                        overlap=overlap)
-                else:
-                    part = (batch_kmer_keys(codes, lengths, cont, k=c.kmer,
-                                            overlap=overlap),)
-                if agg is not None:
-                    # untrimmed: trailing pad windows are sentinel-keyed
-                    # and collapse into the sentinel run
-                    agg.add_part(part)
-                    total += per_batch
-                else:
-                    if mine < len(seg):
-                        part = tuple(w[:mine * wrow] for w in part)
-                    if spill:
-                        part = tuple(w.cpu().numpy() for w in part)
-                    keys_parts.append(part)
-                    total += kept_rows * wrow
-                    local += len(part[0])
-                segs.append((seg[:mine], mine))
-                tnf_histogram_segsum(thist, codes, lengths, seg, cont,
-                                     k=c.tnf_kmer, overlap=overlap,
-                                     rank_lut=lut)
-                if not spill and total > cap:
-                    log.warning("sort-join overflow (%d windows > cap %d); "
-                                "spilling and continuing (the stream is "
-                                "still read once)", total, cap)
+            with span("step1.stream") as stream:
+                io, events = self._group_events(reads1, reads2, interleaved)
+                spill = False
+                est = self._estimate_stream_windows(
+                    interleaved if interleaved else (reads1, reads2))
+                if est is not None and est * 21 // 20 > cap:
+                    log.info("sort-join spill mode: ~%d windows > device "
+                             "cap %d", est, cap)
+                    spill = True
                     if c.spill_agg != "off" and self._spill_aggregate:
                         agg = _SpillAgg(self, weighted, per_batch)
-                        for p in keys_parts:
-                            short = per_batch - len(p[0])
-                            if short:
-                                # re-pad parts the trim cut: the cut
-                                # windows were sentinel pad anyway
-                                p = tuple(torch.cat([w, pw]) for w, pw in
-                                          zip(p, self._pad_part(short,
-                                                                weighted)))
-                            agg.add_part(p)
-                        keys_parts = []
+                # device parts in cap; host numpy parts once spilled raw.
+                # ``total`` counts the windows of whole batches, which every
+                # device reads, so every device takes the same spill decisions;
+                # ``local`` counts this extractor's windows
+                keys_parts: List[Tuple] = []
+                chunk_meta = []  # (names, [(seg_ids, kept_rows)], thist)
+                segs = []
+                thist = None
+                total = local = 0
+                ranges = 0
+                for kind, payload in prefetch(self._host_tensors(events),
+                                              depth=4):
+                    if kind == "chunk":
+                        chunk_meta.append((payload, segs,
+                                           thist if thist is not None
+                                           else self._zeros(G, ncols)))
+                        segs, thist = [], None
+                        log.info("sortjoin pass A: %d barcodes, %d windows",
+                                 sum(len(m[0]) for m in chunk_meta), total)
+                        continue
+                    b, host = payload
+                    codes, lengths, seg, cont, *lowq = self._device_batch(host)
+                    if thist is None:
+                        thist = self._zeros(G, ncols)
+                    # a tail batch's trailing pad rows are pure sentinel sort
+                    # cost: keep only the filled rows, quantized
+                    kept_rows = rows
+                    if b.rows_used < rows:
+                        kept_rows = min(rows, -(-b.rows_used // _TRIM_QUANTUM)
+                                        * _TRIM_QUANTUM)
+                    mine = self._local_rows(kept_rows)
+                    if weighted:
+                        # a missing plane would silently give UNMASKED counts
+                        if not lowq:
+                            raise RuntimeError("masked sort-join batch "
+                                               "arrived without a lowq "
+                                               "plane")
+                        part = batch_kmer_keys_weighted(
+                            codes, lowq[0], lengths, cont, k=c.kmer,
+                            overlap=overlap)
                     else:
-                        keys_parts = [tuple(w.cpu().numpy() for w in p)
-                                      for p in keys_parts]
-                    spill = True
-            if thist is not None or segs:
-                chunk_meta.append(([], segs, thist if thist is not None
-                                   else self._zeros(G, ncols)))
-            synchronize(dev)
-            t1 = time.perf_counter()
+                        part = (batch_kmer_keys(codes, lengths, cont, k=c.kmer,
+                                                overlap=overlap),)
+                    if agg is not None:
+                        # untrimmed: trailing pad windows are sentinel-keyed
+                        # and collapse into the sentinel run
+                        agg.add_part(part)
+                        total += per_batch
+                    else:
+                        if mine < len(seg):
+                            part = tuple(w[:mine * wrow] for w in part)
+                        if spill:
+                            part = tuple(w.cpu().numpy() for w in part)
+                        keys_parts.append(part)
+                        total += kept_rows * wrow
+                        local += len(part[0])
+                    segs.append((seg[:mine], mine))
+                    tnf_histogram_segsum(thist, codes, lengths, seg, cont,
+                                         k=c.tnf_kmer, overlap=overlap,
+                                         rank_lut=lut)
+                    if not spill and total > cap:
+                        log.warning("sort-join overflow (%d windows > cap "
+                                    "%d); spilling and continuing (the "
+                                    "stream is still read once)", total,
+                                    cap)
+                        if c.spill_agg != "off" and self._spill_aggregate:
+                            agg = _SpillAgg(self, weighted, per_batch)
+                            for p in keys_parts:
+                                short = per_batch - len(p[0])
+                                if short:
+                                    # re-pad parts the trim cut: the cut
+                                    # windows were sentinel pad anyway
+                                    p = tuple(torch.cat([w, pw]) for w, pw in
+                                              zip(p, self._pad_part(short,
+                                                                    weighted)))
+                                agg.add_part(p)
+                            keys_parts = []
+                        else:
+                            keys_parts = [tuple(w.cpu().numpy() for w in p)
+                                          for p in keys_parts]
+                        spill = True
+                if thist is not None or segs:
+                    chunk_meta.append(([], segs, thist if thist is not None
+                                       else self._zeros(G, ncols)))
+                synchronize(dev)
             if not chunk_meta or total == 0:
                 return (np.array([], dtype=object),
                         np.zeros((0, c.vector_size), np.int32),
                         np.zeros((0, ncols), np.int32))
-            if agg is not None:
-                agg.finish()
-                agg.finalize_bins()
-                sorted_windows = agg.n_entries
+            with span("step1.sortjoin") as join:
+                if agg is not None:
+                    agg.finish()
+                    agg.finalize_bins()
+                    sorted_windows = agg.n_entries
 
-                def bins_at(bi, off, kw):
-                    return agg.batch_bins(bi)[:kw]
-            elif spill:
-                bins_host = self._chunked_sortjoin_bins(keys_parts,
-                                                        weighted=weighted)
-                ranges = self._last_ranges
-                sorted_windows = total
-                del keys_parts
+                    def bins_at(bi, off, kw):
+                        return agg.batch_bins(bi)[:kw]
+                elif spill:
+                    bins_host = self._chunked_sortjoin_bins(keys_parts,
+                                                            weighted=weighted)
+                    ranges = self._last_ranges
+                    sorted_windows = total
+                    del keys_parts
 
-                def bins_at(bi, off, kw):
-                    return self._to_device(bins_host[off:off + kw])
-            else:
-                npad = self._sortjoin_pad_size(local)
-                if npad > local:
-                    keys_parts.append(self._pad_part(npad - local, weighted))
-                cols = [torch.cat([p[i] for p in keys_parts])
-                        for i in range(len(keys_parts[0]))]
-                del keys_parts
-                bins = self._bins(cols[0], cols[1] if weighted else None)
-                del cols
-                sorted_windows = npad
+                    def bins_at(bi, off, kw):
+                        return self._to_device(bins_host[off:off + kw])
+                else:
+                    npad = self._sortjoin_pad_size(local)
+                    if npad > local:
+                        keys_parts.append(self._pad_part(npad - local,
+                                                         weighted))
+                    cols = [torch.cat([p[i] for p in keys_parts])
+                            for i in range(len(keys_parts[0]))]
+                    del keys_parts
+                    bins = self._bins(cols[0], cols[1] if weighted else None)
+                    del cols
+                    sorted_windows = npad
 
-                def bins_at(bi, off, kw):
-                    return bins[off:off + kw]
-            synchronize(dev)
-            t2 = time.perf_counter()
-            names: List[str] = []
-            abd_dev, tnf_dev = [], []
-            off = 0
-            bi = 0
-            for cnames, segs, thist in chunk_meta:
-                hist = self._zeros(G, c.vector_size)
-                for seg, kept_rows in segs:
-                    kw = kept_rows * wrow
-                    abundance_histogram_from_bins(
-                        hist, bins_at(bi, off, kw).view(kept_rows, wrow),
-                        seg, vector_size=c.vector_size)
-                    off += kw
-                    bi += 1
-                names += list(cnames)
-                g = len(cnames)
-                abd_dev.append(hist[:g])
-                tnf_dev.append(thist[:g])
-            abd_all = self._reduce(torch.cat(abd_dev)).cpu().numpy()
-            tnf_all = self._reduce(torch.cat(tnf_dev)).cpu().numpy()
-            t3 = time.perf_counter()
+                    def bins_at(bi, off, kw):
+                        return bins[off:off + kw]
+                synchronize(dev)
+            with span("step1.replay") as replay:
+                names: List[str] = []
+                abd_dev, tnf_dev = [], []
+                off = 0
+                bi = 0
+                for cnames, segs, thist in chunk_meta:
+                    hist = self._zeros(G, c.vector_size)
+                    for seg, kept_rows in segs:
+                        kw = kept_rows * wrow
+                        abundance_histogram_from_bins(
+                            hist, bins_at(bi, off, kw).view(kept_rows, wrow),
+                            seg, vector_size=c.vector_size)
+                        off += kw
+                        bi += 1
+                    names += list(cnames)
+                    g = len(cnames)
+                    abd_dev.append(hist[:g])
+                    tnf_dev.append(thist[:g])
+                abd_all = self._reduce(torch.cat(abd_dev)).cpu().numpy()
+                tnf_all = self._reduce(torch.cat(tnf_dev)).cpu().numpy()
         finally:
             if agg is not None:
                 agg.cleanup()
@@ -793,8 +795,9 @@ class FeatureExtractor:
                       "spill_chunks": len(agg.groups) if agg is not None
                       else 0,
                       "ranges": ranges,
-                      "stream_s": t1 - t0, "sortjoin_s": t2 - t1,
-                      "replay_s": t3 - t2}
+                      "stream_s": stream.seconds,
+                      "sortjoin_s": join.seconds,
+                      "replay_s": replay.seconds}
         log.info("sortjoin done: %d barcodes, %d windows (spill %s)",
                  len(names), total, self.stats["spill"])
         if not names:
@@ -963,14 +966,14 @@ class FeatureExtractor:
 
     def _table_features(self, reads1: str, reads2: str,
                         interleaved: str) -> Features:
-        t0 = time.perf_counter()
-        table = self.global_kmer_table(reads1, reads2, interleaved)
-        synchronize(self.device)
-        t1 = time.perf_counter()
-        out = self.group_features(table, reads1, reads2, interleaved)
+        with span("step1.global") as count:
+            table = self.global_kmer_table(reads1, reads2, interleaved)
+            synchronize(self.device)
+        with span("step1.group") as group:
+            out = self.group_features(table, reads1, reads2, interleaved)
         del table
-        self.stats = {"path": "table", "global_s": t1 - t0,
-                      "group_s": time.perf_counter() - t1}
+        self.stats = {"path": "table", "global_s": count.seconds,
+                      "group_s": group.seconds}
         return out
 
     # ---- jellyfish dump interchange ---------------------------------------
@@ -1046,11 +1049,14 @@ class FeatureExtractor:
 
     def _save(self, names, abd, tnf) -> None:
         """Only the gz CSVs — what the reference's count_kmer / count_tnf
-        binaries emit — then the marker, after both files landed."""
-        self._write_csv_gz(self.abd_gz, names, abd)
-        self._write_csv_gz(self.tnf_gz, names, tnf)
-        with open(self.marker, "w") as f:
-            f.write("feature finished")
+        binaries emit — then the marker, after both files landed. Its
+        seconds go to ``stats["save_s"]``."""
+        with span("step1.save") as s:
+            self._write_csv_gz(self.abd_gz, names, abd)
+            self._write_csv_gz(self.tnf_gz, names, tnf)
+            with open(self.marker, "w") as f:
+                f.write("feature finished")
+        self.stats["save_s"] = s.seconds
 
     def _extract_inner(self, reads1: str, reads2: str,
                        interleaved: str) -> Features:

@@ -66,7 +66,6 @@ from __future__ import annotations
 import logging
 import os
 import pickle
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -75,6 +74,7 @@ import torch
 from pangaea_tpu_torch.config import ModelConfig
 from pangaea_tpu_torch.model.dataset import BarcodeDataset, batch_index_matrix
 from pangaea_tpu_torch.model.vae import VAE, embed, loss_weights, unlabeled_loss
+from pangaea_tpu_torch.profiling import span
 from pangaea_tpu_torch.utils import (DeviceLike, replacing, resolve_device,
                                      setup_numerics)
 
@@ -399,7 +399,9 @@ class VAETrainer:
         read per chunk. ``phase_times`` holds the host seconds spent
         building chunks (``build``), launching their units
         (``dispatch``), waiting for their rows (``sync``) and saving
-        checkpoints (``ckpt_io``), with the ``chunks`` and the ``units``
+        checkpoints (``ckpt_io``), each from the span of that name
+        (``step2.build``, ``step2.dispatch``, ``step2.sync``,
+        ``step2.ckpt``), with the ``chunks`` and the ``units``
         launched."""
         cfg, model, dev = self.cfg, self.model, self.device
         rng = rng or np.random.RandomState(cfg.seed)
@@ -470,18 +472,18 @@ class VAETrainer:
         def drain_ckpt() -> None:
             if not pending:
                 return
-            t0 = time.perf_counter()
-            host, done = pending.pop()
-            if done is not None:
-                done.synchronize()
-            flat, state, off = host.numpy(), {}, 0
-            for name, shape in zip(names, shapes):
-                size = int(np.prod(shape, dtype=np.int64))
-                state[name] = flat[off:off + size].reshape(shape).copy()
-                off += size
-            best["state"] = state
-            save_params(ckpt, state)
-            pt["ckpt_io"] += time.perf_counter() - t0
+            with span("step2.ckpt") as s:
+                host, done = pending.pop()
+                if done is not None:
+                    done.synchronize()
+                flat, state, off = host.numpy(), {}, 0
+                for name, shape in zip(names, shapes):
+                    size = int(np.prod(shape, dtype=np.int64))
+                    state[name] = flat[off:off + size].reshape(shape).copy()
+                    off += size
+                best["state"] = state
+                save_params(ckpt, state)
+            pt["ckpt_io"] += s.seconds
 
         pt = self.phase_times = {"build": 0.0, "dispatch": 0.0, "sync": 0.0,
                                  "ckpt_io": 0.0, "chunks": 0, "units": 0}
@@ -491,39 +493,40 @@ class VAETrainer:
         stopped_at = None
         log.info("train start")
         while done_units < total_units and stopped_at is None:
-            t0 = time.perf_counter()
-            chunk = [next(gen_units)
-                     for _ in range(min(C, total_units - done_units))]
-            t_np = np.zeros((C, U, bsz), np.int32)
-            v_np = np.zeros((C, vnb, bsz), np.int32)
-            for i, (_, _, nb_u, _, tm, _, vm) in enumerate(chunk):
-                t_np[i, :nb_u], v_np[i] = tm, vm
-            t_idx, v_idx = upload(t_np), upload(v_np)
-            rows_dev.zero_()
-            pt["build"] += time.perf_counter() - t0
+            with span("step2.build") as s:
+                chunk = [next(gen_units)
+                         for _ in range(min(C, total_units - done_units))]
+                t_np = np.zeros((C, U, bsz), np.int32)
+                v_np = np.zeros((C, vnb, bsz), np.int32)
+                for i, (_, _, nb_u, _, tm, _, vm) in enumerate(chunk):
+                    t_np[i, :nb_u], v_np[i] = tm, vm
+                t_idx, v_idx = upload(t_np), upload(v_np)
+                rows_dev.zero_()
+            pt["build"] += s.seconds
 
-            t0 = time.perf_counter()
-            polled, halt = 0, False
-            for i, (_, _, _, _, _, counts, _) in enumerate(chunk):
-                # stop launching once an earlier unit's stop flag landed
-                while polled < i and flags.landed(polled):
-                    halt |= bool(flags.host[polled])
-                    polled += 1
-                if halt:
-                    break
-                rows_dev[i], stop = self._run_unit(
-                    es, opt, gen, abd_all, tnf_all, counts, t_idx[i],
-                    v_idx[i], vcounts)
-                flags.put(i, stop)
-                pt["units"] += 1
-            pt["dispatch"] += time.perf_counter() - t0
+            with span("step2.dispatch") as s:
+                polled, halt = 0, False
+                for i, (_, _, _, _, _, counts, _) in enumerate(chunk):
+                    # stop launching once an earlier unit's stop flag
+                    # landed
+                    while polled < i and flags.landed(polled):
+                        halt |= bool(flags.host[polled])
+                        polled += 1
+                    if halt:
+                        break
+                    rows_dev[i], stop = self._run_unit(
+                        es, opt, gen, abd_all, tnf_all, counts, t_idx[i],
+                        v_idx[i], vcounts)
+                    flags.put(i, stop)
+                    pt["units"] += 1
+            pt["dispatch"] += s.seconds
             pt["chunks"] += 1
 
             drain_ckpt()  # the previous chunk's best, behind this chunk
 
-            t0 = time.perf_counter()
-            rows = rows_dev.cpu().numpy()   # one (C, 8) read
-            pt["sync"] += time.perf_counter() - t0
+            with span("step2.sync") as s:
+                rows = rows_dev.cpu().numpy()   # one (C, 8) read
+            pt["sync"] += s.seconds
             any_improved = False
             for i, (g, epoch, nb_u, done_b, *_) in enumerate(chunk):
                 val, stats = rows[i, 0], rows[i, 1:5]
@@ -543,15 +546,16 @@ class VAETrainer:
                     break
             done_units += len(chunk)
             if any_improved:
-                t0 = time.perf_counter()
-                host = torch.empty(es.best_flat.shape,
-                                   dtype=es.best_flat.dtype, pin_memory=cuda)
-                host.copy_(es.best_flat, non_blocking=True)
-                done = torch.cuda.Event() if cuda else None
-                if cuda:
-                    done.record()
-                pending.append((host, done))
-                pt["ckpt_io"] += time.perf_counter() - t0
+                with span("step2.ckpt") as s:
+                    host = torch.empty(es.best_flat.shape,
+                                       dtype=es.best_flat.dtype,
+                                       pin_memory=cuda)
+                    host.copy_(es.best_flat, non_blocking=True)
+                    done = torch.cuda.Event() if cuda else None
+                    if cuda:
+                        done.record()
+                    pending.append((host, done))
+                pt["ckpt_io"] += s.seconds
 
         drain_ckpt()
         if stopped_at is not None:

@@ -33,7 +33,6 @@ import argparse
 import logging
 import os
 import sys
-import time
 from typing import Dict, Optional
 
 from pangaea_tpu_torch.asm.tools import ToolRunner
@@ -41,6 +40,7 @@ from pangaea_tpu_torch.io.fastq import barcode_sort_interleaved
 from pangaea_tpu_torch.io.preprocess import (interleave, load_whitelist,
                                              preprocess_stlfr,
                                              preprocess_tellseq)
+from pangaea_tpu_torch.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -81,13 +81,6 @@ def preprocess_reads(args, reads_dir: str, runner: ToolRunner,
     ``short2long_s``, ``add_barcode_s``, ``assign_s`` (hybrid),
     ``interleave_s`` and ``sort_s``."""
     stats = {} if stats is None else stats
-
-    def timed(key, fn, *a, **kw):
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        stats[key] = time.perf_counter() - t0
-        return out
-
     os.makedirs(reads_dir, exist_ok=True)
     r1, r2 = args.reads1, args.reads2
     if args.short_type == "stlfr":
@@ -95,16 +88,20 @@ def preprocess_reads(args, reads_dir: str, runner: ToolRunner,
         if not os.path.isfile(out1):
             log.info("[stlfr] Preprocessing stlfr reads...")
             wl = (load_whitelist(args.whitelist) if args.whitelist else None)
-            timed("preprocess_s", preprocess_stlfr, r1, r2,
-                  os.path.join(reads_dir, "stlfr"), numeric=wl is None,
-                  library=True, whitelist=wl)
+            with span("step0.preprocess") as s:
+                preprocess_stlfr(r1, r2, os.path.join(reads_dir, "stlfr"),
+                                 numeric=wl is None, library=True,
+                                 whitelist=wl)
+            stats["preprocess_s"] = s.seconds
         r1, r2 = out1, os.path.join(reads_dir, "stlfr_2.fq")
     elif args.short_type == "tellseq":
         out1 = os.path.join(reads_dir, "tellseq_1.fq")
         if not os.path.isfile(out1):
             log.info("[tellseq] Preprocessing tellseq reads...")
-            timed("preprocess_s", preprocess_tellseq, r1, r2, args.index,
-                  os.path.join(reads_dir, "tellseq"))
+            with span("step0.preprocess") as s:
+                preprocess_tellseq(r1, r2, args.index,
+                                   os.path.join(reads_dir, "tellseq"))
+            stats["preprocess_s"] = s.seconds
         r1, r2 = out1, os.path.join(reads_dir, "tellseq_2.fq")
 
     sorted_fq = os.path.join(reads_dir, "interleaved_link_reads.sorted.fastq")
@@ -120,48 +117,56 @@ def preprocess_reads(args, reads_dir: str, runner: ToolRunner,
         bc_map = os.path.join(reads_dir, "barcode_maps.txt")
         if not os.path.isfile(bc_map):
             log.info("[hybrid] long-read barcode map")
-            timed("barcode_map_s", make_longread_barcode_map,
-                  args.longreads, bc_map)
+            with span("step0.barcode_map") as s:
+                make_longread_barcode_map(args.longreads, bc_map)
+            stats["barcode_map_s"] = s.seconds
         s2l_bam = os.path.join(reads_dir, "short2long.bam")
         if not os.path.isfile(s2l_bam):
-            t0 = time.perf_counter()
-            if all(runner.available(t) for t in ("bwa", "samtools")):
-                if not os.path.isfile(args.longreads + ".bwt"):
-                    log.info("[hybrid] bwa index")
-                    runner.run(["bwa", "index", args.longreads],
-                               log_name="bwa.log")
-                log.info("[hybrid] bwa mem")
-                runner.run([], shell_cmd=(
-                    f"bwa mem -t {args.threads} {args.longreads} {r1} {r2}"
-                    f" | samtools sort -@ {args.threads} -n -o {s2l_bam} -"),
-                    log_name="bwa.log")
-            else:
-                log.warning("[hybrid] bwa not found; builtin k-mer vote "
-                            "mapper on %s", args.device)
-                _builtin_short2long(args.longreads, r1, r2, s2l_bam,
-                                    device=args.device)
-            stats["short2long_s"] = time.perf_counter() - t0
+            with span("step0.short2long") as s:
+                if all(runner.available(t) for t in ("bwa", "samtools")):
+                    if not os.path.isfile(args.longreads + ".bwt"):
+                        log.info("[hybrid] bwa index")
+                        runner.run(["bwa", "index", args.longreads],
+                                   log_name="bwa.log")
+                    log.info("[hybrid] bwa mem")
+                    runner.run([], shell_cmd=(
+                        f"bwa mem -t {args.threads} {args.longreads} {r1} "
+                        f"{r2} | samtools sort -@ {args.threads} -n -o "
+                        f"{s2l_bam} -"), log_name="bwa.log")
+                else:
+                    log.warning("[hybrid] bwa not found; builtin k-mer vote "
+                                "mapper on %s", args.device)
+                    _builtin_short2long(args.longreads, r1, r2, s2l_bam,
+                                        device=args.device)
+            stats["short2long_s"] = s.seconds
         short_map = os.path.join(reads_dir, "short_reads_barcoded_map.txt")
         if not os.path.isfile(short_map):
             log.info("[hybrid] add virtual barcode")
-            timed("add_barcode_s", add_barcode, s2l_bam, bc_map,
-                  os.path.join(reads_dir, "short_reads_barcoded"))
+            with span("step0.add_barcode") as s:
+                add_barcode(s2l_bam, bc_map,
+                            os.path.join(reads_dir, "short_reads_barcoded"))
+            stats["add_barcode_s"] = s.seconds
         if not os.path.isfile(inter):
             log.info("[hybrid] assign barcodes")
-            timed("assign_s", assign_barcodes, short_map, r1, r2,
-                  inter + ".tmp")
+            with span("step0.assign") as s:
+                assign_barcodes(short_map, r1, r2, inter + ".tmp")
+            stats["assign_s"] = s.seconds
             os.replace(inter + ".tmp", inter)
     else:
         if not os.path.isfile(inter):
             log.info("[linked] Interleaving short reads")
-            timed("interleave_s", interleave, r1, r2, inter + ".tmp")
+            with span("step0.interleave") as s:
+                interleave(r1, r2, inter + ".tmp")
+            stats["interleave_s"] = s.seconds
             os.replace(inter + ".tmp", inter)
     log.info("Sorting linked reads by barcode")
     # write-then-rename: resume checks are existence-based, so a sort
     # killed mid-write must not leave a truncated sorted_fq that a rerun
     # would silently accept
     tmp_sorted = sorted_fq + ".tmp"
-    timed("sort_s", barcode_sort_interleaved, inter, tmp_sorted)
+    with span("step0.sort") as s:
+        barcode_sort_interleaved(inter, tmp_sorted)
+    stats["sort_s"] = s.seconds
     os.replace(tmp_sorted, sorted_fq)
     os.remove(inter)
     return sorted_fq

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from collections import defaultdict
 
 import numpy as np
@@ -29,7 +28,7 @@ import numpy as np
 from pangaea_tpu_torch.config import PangaeaConfig
 from pangaea_tpu_torch.features import FeatureExtractor
 from pangaea_tpu_torch.io.extract_reads import extract_reads
-from pangaea_tpu_torch.profiling import StageTimer, trace
+from pangaea_tpu_torch.profiling import StageTimer, span, trace
 from pangaea_tpu_torch.utils import DeviceLike, replacing, resolve_device
 
 log = logging.getLogger(__name__)
@@ -59,7 +58,8 @@ class Pipeline:
         self._fe_pending = None
         # the step-1 extractor of the last run (window counts, phases)
         self.feature_extractor = None
-        # step 3's cluster count, where it came from, and its seconds
+        # step 3's cluster count, where it came from, and the seconds of
+        # its final RPH-k-means and its read extraction
         self.cluster_stats: dict = {}
         # step 2's (epoch, batch, val loss) per eval, the fused loop's
         # phase_times, and the seconds of its set-up, fit and latent dump
@@ -99,25 +99,25 @@ class Pipeline:
                                   device=self.device)
             names, abd, tnf = fe.load_features()
         os.makedirs(self.model_dir, exist_ok=True)
-        t0 = time.perf_counter()
-        ds = BarcodeDataset(names, abd, tnf)
-        m = self.cfg.model
-        model = VAE(abd_dim=ds.abd_dim, tnf_dim=ds.tnf_dim,
-                    hidden_sizes=tuple(m.hidden_sizes),
-                    latent_dim=m.latent_dim, dropout=m.dropout,
-                    negative_slope=m.negative_slope,
-                    matmul_dtype=m.matmul_dtype,
-                    generator=torch.Generator().manual_seed(m.seed))
-        trainer = VAETrainer(model, m, device=self.device)
-        rng = np.random.RandomState(m.seed)
-        t1 = time.perf_counter()
-        state = trainer.fit(ds, self.model_dir, rng=rng)
-        t2 = time.perf_counter()
-        trainer.dump_latent(ds, self.model_dir, state, rng=rng)
+        with span("step2.setup") as setup:
+            ds = BarcodeDataset(names, abd, tnf)
+            m = self.cfg.model
+            model = VAE(abd_dim=ds.abd_dim, tnf_dim=ds.tnf_dim,
+                        hidden_sizes=tuple(m.hidden_sizes),
+                        latent_dim=m.latent_dim, dropout=m.dropout,
+                        negative_slope=m.negative_slope,
+                        matmul_dtype=m.matmul_dtype,
+                        generator=torch.Generator().manual_seed(m.seed))
+            trainer = VAETrainer(model, m, device=self.device)
+            rng = np.random.RandomState(m.seed)
+        with span("step2.fit") as fit:
+            state = trainer.fit(ds, self.model_dir, rng=rng)
+        with span("step2.latent") as latent:
+            trainer.dump_latent(ds, self.model_dir, state, rng=rng)
         self.train_stats = {"val_history": list(trainer.val_history),
                             "phase_times": dict(trainer.phase_times),
-                            "setup_s": t1 - t0, "fit_s": t2 - t1,
-                            "latent_s": time.perf_counter() - t2}
+                            "setup_s": setup.seconds, "fit_s": fit.seconds,
+                            "latent_s": latent.seconds}
         with open(os.path.join(self.model_dir, "model_finished"), "w") as f:
             f.write("model finished")
 
@@ -166,11 +166,11 @@ class Pipeline:
             k = cfg.cluster.n_clusters or self._estimate_k()
             # seeded: the reference's rph_kmeans draws from the GLOBAL
             # np.random that init_all seeds to 2021 (utils.py:84-88)
-            t0 = time.perf_counter()
-            clusters = clustering_rph_kmeans(
-                emb, k, n_init=cfg.cluster.n_init,
-                random_state=cfg.model.seed, device=self.device)
-            self.cluster_stats.update(k=k, rph_s=time.perf_counter() - t0)
+            with span("step3.rph") as rph:
+                clusters = clustering_rph_kmeans(
+                    emb, k, n_init=cfg.cluster.n_init,
+                    random_state=cfg.model.seed, device=self.device)
+            self.cluster_stats.update(k=k, rph_s=rph.seconds)
             np.savez(out_npz, clusters)
             c2b = defaultdict(list)
             for i in range(len(bcs)):
@@ -180,9 +180,11 @@ class Pipeline:
                     tsv.write("{}\t{}\n".format(cid, ",".join(bclist)))
         else:
             log.info("existing clustering result found")
-        extract_reads(out_tsv, os.path.join(self.cluster_dir, "cluster"),
-                      reads1=cfg.reads1, reads2=cfg.reads2,
-                      interleaved=cfg.interleaved_reads)
+        with span("step3.extract") as extract:
+            extract_reads(out_tsv, os.path.join(self.cluster_dir, "cluster"),
+                          reads1=cfg.reads1, reads2=cfg.reads2,
+                          interleaved=cfg.interleaved_reads)
+        self.cluster_stats["extract_s"] = extract.seconds
         with open(os.path.join(self.cluster_dir, "clustering_finished"),
                   "w") as f:
             f.write("finished")

@@ -160,26 +160,35 @@ def test_merge_entry_point(tmp_path, capsys):
 
 
 def test_stage_timer(tmp_path):
-    from pangaea_tpu_torch.profiling import StageTimer
+    """Each stage is a span of its name: the stage's seconds are the
+    span's, and metrics.json holds the seconds per stage."""
+    from pangaea_tpu_torch.profiling import StageTimer, span, take_totals
+    take_totals()
     t = StageTimer()
-    with t.stage("read", unit="reads") as st:
-        st.items += 100
-    t.add("read", 20)
-    t.add("write", 5, unit="records")
-    assert t.stages["read"].items == 120
-    assert t.stages["write"].unit == "records"
-    assert t.stages["read"].seconds >= 0
+    with t.stage("read") as st:
+        with span("read.inner"):
+            pass
+    with t.stage("read"):
+        pass
+    with t.stage("write"):
+        pass
+    totals = take_totals()
+    assert set(totals) == {"read", "read.inner", "write"}
+    assert t.stages["read"].seconds == pytest.approx(totals["read"],
+                                                     rel=1e-9, abs=1e-12)
+    assert st is t.stages["read"] and st.seconds >= totals["read.inner"]
     t.dump(str(tmp_path / "m.json"))
     m = json.load(open(tmp_path / "m.json"))
-    assert m["read"]["items"] == 120 and m["write"]["items"] == 5
+    assert set(m) == {"read", "write"}
+    assert m["write"] == {"seconds": round(t.stages["write"].seconds, 4)}
 
 
 def test_trace_writes_a_chrome_trace_only_when_asked(tmp_path, monkeypatch):
     """With a trace_dir (or PANGAEA_TPU_TRACE) the block's CPU ops and
-    annotate's ranges land in a Chrome trace; unset, nothing is
+    its spans' ranges land in a Chrome trace; unset, nothing is
     written."""
     import torch
-    from pangaea_tpu_torch.profiling import TRACE_ENV, annotate, trace
+    from pangaea_tpu_torch.profiling import TRACE_ENV, span, trace
     monkeypatch.delenv(TRACE_ENV, raising=False)
     quiet = tmp_path / "quiet"
     with trace("pipeline"):
@@ -187,7 +196,7 @@ def test_trace_writes_a_chrome_trace_only_when_asked(tmp_path, monkeypatch):
     assert not quiet.exists()
     d = tmp_path / "trace"
     with trace("pipeline", trace_dir=str(d)):
-        with annotate("step1"):
+        with span("step1"):
             torch.arange(1000).cumsum(0)
     files = os.listdir(d)
     assert len(files) == 1 and files[0].endswith(".pt.trace.json")
