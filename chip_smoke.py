@@ -21,6 +21,19 @@ Phases, each fatal on failure:
    repeat   — each of the six variants 50 times on one input of 2^24+13
               elements, every result bit-equal (a memory-ordering fault
               in the look-back shows only now and then).
+   adam     — the Adam kernel (csrc/adam.cu) on the benchmark VAE's
+              1,129,048 parameters (abundance 400, TNF 136, the default
+              widths): 30 steps, the kernel taking over eager Adam's state
+              after 3, against its plain version (eager Adam's foreach
+              calls with the table's scalars) and eager torch.optim.Adam
+              (foreach) on the same parameters and gradients: parameters,
+              exp_avg and exp_avg_sq bit-equal after every step, one
+              launch a step; a step past the table changes nothing and
+              sets the flag KernelAdam.check raises on. Then the kernel's
+              time a step, replayed from a CUDA graph (warm, and after a
+              256 MB write that evicts the L2, the write's own time taken
+              off) and issued from the host, beside the plain version's,
+              eager Adam's and the 28-byte-an-element HBM bound.
    simulate — the FASTQs of phases 3, 6, 8 (k31) and 10 (raw stLFR),
               made from their seeds in four spawned processes at once.
 3. pipeline — the port's steps 1-3 (FASTQ -> features -> VAE latent ->
@@ -112,7 +125,10 @@ Phases, each fatal on failure:
               step-0 sub-stage and each step.
     step2   — steps 2-3 on phase 3's features with the fused loop, the
               stepwise loop (PANGAEA_TRAIN_LOOP=stepwise) and bfloat16
-              matmuls: fused and stepwise stop at the same epoch with val
+              matmuls (the fused loop and bf16 must launch the Adam
+              kernel, the stepwise loop must not; the launches per
+              replayed unit are printed): fused and stepwise stop at the
+              same epoch with val
               histories bit-equal (else within 1e-4 relative) and
               cross-ARI >= 0.95; bfloat16 reaches ARI >= 0.5 and
               cross-ARI >= 0.95 against float32. Prints evals, last
@@ -146,7 +162,10 @@ Phases, each fatal on failure:
               the device busy share of the 'pipeline' range.
 
 Every path's launch counts are zeroed just before it and read just
-after it. After the phases, cummax and cummin_reverse are timed at the
+after it: the scans' and the Adam kernel's, whose count is its launches
+from the host plus, for each CUDA graph replayed, the launches the graph
+recorded. Every path that runs step 2's fused loop on the card must
+launch the Adam kernel; every other path must not. After the phases, cummax and cummin_reverse are timed at the
 main path's scan length, cumsum at the paired path's, all three again at
 the k = 21 path's, and cummax at the mapper's flat (65,536 x 244) length
 on a real run-boundary array, beside torch.cummax along its rows, and
@@ -156,7 +175,9 @@ copy of the same int32 bytes at each measured length (the
 achievable-bandwidth yardstick beside the bound). The line before the
 last is one JSON object with every kernel (name, route, source, the TPU
 kernel it replaces, launches summed over the driven paths and per path,
-max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms). The last
+max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; for the Adam
+kernel ms is its cold-L2 time a step, with warm_ms and host_ms beside
+it). The last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}.
 Exits non-zero, printing no result, when there is no CUDA card or the
@@ -187,6 +208,12 @@ SCAN_LENGTHS = [1, 7, 4095, 4096, 4097, 32767, 32768, 32769,
 VARIANTS = [(op, rev) for op in ("max", "min", "sum") for rev in (False, True)]
 I32_MIN, I32_MAX = -(2 ** 31), 2 ** 31 - 1
 REPEAT_N, REPEATS = (1 << 24) + 13, 50
+# the Adam phase: the benchmark VAE's inputs, pangaea_tpu's lr and decay
+ADAM_ABD, ADAM_TNF, ADAM_LR, ADAM_WD = 400, 136, 0.005, 1e-4
+ADAM_STEPS, ADAM_TAKEOVER, ADAM_TIMED = 30, 3, 50
+ADAM_BYTES = 28            # p, g, m, v read; p, m, v written: float32
+L2_FLUSH_FLOATS = 64 << 20  # 256 MB, five times the H100's 50 MB L2
+ADAM = ("adam_step",)
 
 
 def log(msg: str) -> None:
@@ -433,6 +460,148 @@ def phase_repeat() -> None:
         f"n={REPEAT_N}")
 
 
+def _adam_params(seed: int):
+    """The benchmark VAE's parameters on the card, as leaves, each with
+    its eager torch.optim.Adam (pangaea_tpu's lr and decay, foreach)."""
+    import torch
+    from pangaea_tpu_torch.model.vae import VAE
+    ps = [p.detach().cuda().requires_grad_() for p in VAE(
+        ADAM_ABD, ADAM_TNF,
+        generator=torch.Generator().manual_seed(seed)).parameters()]
+    return ps, torch.optim.Adam(ps, lr=ADAM_LR, weight_decay=ADAM_WD,
+                                foreach=True)
+
+
+def _graph_ms(fn, steps: int) -> float:
+    """Median CUDA-event time of one replay of a graph that records
+    ``fn`` ``steps`` times, over ``steps``."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(steps):
+            fn()
+    ms = time_ms(graph.replay) / steps
+    graph.reset()
+    return ms
+
+
+def phase_adam() -> dict:
+    """The Adam kernel against its plain version and eager Adam on the
+    benchmark VAE's parameters, bit for bit, then its times (the module
+    docstring's phase list)."""
+    import torch
+    from pangaea_tpu_torch.kernels import adam
+    (pe, oe), (pk, ok), (pp, op) = (_adam_params(0) for _ in range(3))
+    n = sum(p.numel() for p in pe)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def grads(t: int) -> None:  # every scale from 1e-4 to 1e2
+        for i, group in enumerate(zip(pe, pk, pp)):
+            g = torch.randn(group[0].shape, generator=gen, device="cuda")
+            for p in group:
+                p.grad = g * 10.0 ** (i % 7 - 4)
+
+    for t in range(ADAM_TAKEOVER):
+        grads(t)
+        for o in (oe, ok, op):
+            o.step()
+    kk = adam.KernelAdam(ok, ADAM_STEPS)
+    kp = adam.KernelAdam(op, ADAM_STEPS)  # stepped by the plain version
+
+    @torch.no_grad()
+    def plain_step(k, ps) -> None:
+        adam.adam_step_plain(ps, [p.grad for p in ps], k.exp_avgs,
+                             k.exp_avg_sqs, k.rows, k.state, k.consts)
+
+    reset_launches()
+    for t in range(ADAM_TAKEOVER, ADAM_STEPS):
+        grads(t)
+        oe.step()
+        kk.step()
+        plain_step(kp, pp)
+        for i, e in enumerate(pe):
+            st = oe.state[e]
+            for what, want, got, plain in (
+                    ("param", e, pk[i], pp[i]),
+                    ("exp_avg", st["exp_avg"], kk.exp_avgs[i],
+                     kp.exp_avgs[i]),
+                    ("exp_avg_sq", st["exp_avg_sq"], kk.exp_avg_sqs[i],
+                     kp.exp_avg_sqs[i])):
+                if not (torch.equal(want, got) and torch.equal(want, plain)):
+                    raise AssertionError(f"adam: {what} of tensor {i} "
+                                         f"differs at step {t + 1}")
+    launches = adam.adam_step.launches
+    if (launches != ADAM_STEPS - ADAM_TAKEOVER
+            or kk.state.tolist() != [ADAM_STEPS, 0, 0]
+            or kp.state.tolist() != [ADAM_STEPS, 0, 0]):
+        raise AssertionError(f"adam: {launches} launches, states "
+                             f"{kk.state.tolist()}, {kp.state.tolist()}")
+    kk.check()
+    before = [p.clone() for p in pk]
+    kk.step()  # past the table: changes nothing, sets the flag
+    torch.cuda.synchronize()
+    if (not all(torch.equal(a, b) for a, b in zip(before, pk))
+            or kk.state.tolist() != [ADAM_STEPS, 0, 1]):
+        raise AssertionError("adam: a step past the table changed state")
+    try:
+        kk.check()
+        raise AssertionError("adam: check() let a step past the table by")
+    except RuntimeError:
+        pass
+    log(f"adam: kernel, plain version and eager torch.optim.Adam (foreach) "
+        f"bit-equal over {ADAM_STEPS} steps (kernel from step "
+        f"{ADAM_TAKEOVER + 1}) on {len(pe)} tensors, {n} parameters: "
+        f"params, exp_avg, exp_avg_sq; {launches} launches; a step past "
+        f"the table changes nothing and check() raises")
+    del before, kk, kp
+    # times, on fresh state (the tables long enough for every timed step)
+    (pt, ot), (pl, ol), (pq, oq) = (_adam_params(1) for _ in range(3))
+    for ps, o in ((pt, ot), (pl, ol), (pq, oq)):
+        for p in ps:
+            p.grad = torch.randn_like(p) * 1e-2
+        o.step()
+    kt = adam.KernelAdam(ot, 1 << 16)
+    kq = adam.KernelAdam(oq, 1 << 16)
+    flush = torch.empty(L2_FLUSH_FLOATS, dtype=torch.float32, device="cuda")
+    warm = _graph_ms(kt.step, ADAM_TIMED)
+
+    def flushed_step():
+        flush.zero_()
+        kt.step()
+    cold = (_graph_ms(flushed_step, ADAM_TIMED)
+            - _graph_ms(flush.zero_, ADAM_TIMED))
+    host = time_ms(kt.step)
+    plain = time_ms(lambda: plain_step(kq, pq))
+    library = time_ms(ol.step)
+    kt.check()
+    kq.check()
+    bound = ADAM_BYTES * n / HBM_BYTES_PER_S * 1e3
+    log(f"adam: n={n}; kernel {cold:.4f} ms a step from a graph after an "
+        f"L2 flush ({bound / cold:.1%} of the bound), {warm:.4f} ms back to "
+        f"back ({bound / warm:.1%}), {host:.4f} ms issued from the host; "
+        f"plain {plain:.4f} ms, torch.optim.Adam {library:.4f} ms; bound "
+        f"{bound:.4f} ms ({ADAM_BYTES} bytes an element)")
+    del flush
+    torch.cuda.empty_cache()
+    return {"n": n, "max_abs_err": 0, "ms": cold, "warm_ms": warm,
+            "host_ms": host, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": library}
+
+
+def adam_record(timed: dict, by_path: dict) -> dict:
+    """The Adam kernel's JSON record: ``timed`` from phase_adam, launches
+    per driven path."""
+    per_path = {p: l["adam_step"] for p, l in by_path.items()}
+    return {"name": "adam_step", "route": "cuda",
+            "source": "pangaea_tpu_torch/csrc/adam.cu",
+            "replaces": "no TPU kernel: pangaea_tpu's optax Adam, fused by "
+                        "XLA into its jitted unit",
+            "launches": sum(per_path.values()),
+            "launches_by_path": per_path, **timed}
+
+
 # ---- phase 3 -------------------------------------------------------------
 
 SIM = dict(n_species=8, genome_len=200_000, n_barcodes=10_000,
@@ -574,8 +743,15 @@ def train_line(stats: dict) -> str:
 
 
 def launch_counts() -> dict:
-    from pangaea_tpu_torch.kernels import scan
-    return {fn.__name__: fn.launches for fn in scan.WRAPPERS}
+    from pangaea_tpu_torch.kernels import adam, scan
+    return {**{fn.__name__: fn.launches for fn in scan.WRAPPERS},
+            "adam_step": adam.adam_step.launches}
+
+
+def reset_launches() -> None:
+    from pangaea_tpu_torch.kernels import adam, scan
+    scan.reset_launches()
+    adam.reset_launches()
 
 
 def check_launched(what: str, launches: dict, names, absent=()) -> None:
@@ -610,12 +786,11 @@ def run_pipeline(what: str, cfg, truth: dict, kernels, absent=()) -> dict:
     bin FASTQs and the ARI vs truth."""
     import numpy as np
     import torch
-    from pangaea_tpu_torch.kernels import scan
     from pangaea_tpu_torch.pipeline import Pipeline, check_step_finished
     out = cfg.output
     shutil.rmtree(out, ignore_errors=True)
     pipe = Pipeline(cfg, device="cuda")
-    scan.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pipe.run()
@@ -625,7 +800,7 @@ def run_pipeline(what: str, cfg, truth: dict, kernels, absent=()) -> dict:
     for step in ("1", "2", "3"):
         if not check_step_finished(out, step):
             raise AssertionError(f"{what}: step {step} left no marker")
-    check_launched(what, launches, kernels, absent)
+    check_launched(what, launches, tuple(kernels) + ADAM, absent)
     stats = dict(pipe.feature_extractor.stats)
     steps = {k: v.seconds for k, v in pipe.timer.stages.items()}
     ari, n_labelled, clusters = cluster_ari(out, truth)
@@ -636,7 +811,7 @@ def run_pipeline(what: str, cfg, truth: dict, kernels, absent=()) -> dict:
         + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items()))
     log_stats(what, stats)
     log(f"{what}: step 2 (fused loop): {train_line(pipe.train_stats)}")
-    log(f"{what}: scan launches {launches}; {len(clusters)} barcodes "
+    log(f"{what}: kernel launches {launches}; {len(clusters)} barcodes "
         f"clustered, latent {latent.shape}, {len(bins)} bin FASTQs; "
         f"ARI vs truth {ari:.6f} on {n_labelled} labelled barcodes")
     if not (latent.ndim == 2 and latent.shape[1] == cfg.model.latent_dim
@@ -717,11 +892,10 @@ def run_step1(what: str, inputs: dict, expect, kernels, spill: str,
     import torch
     from pangaea_tpu_torch.config import FeatureConfig
     from pangaea_tpu_torch.features import FeatureExtractor
-    from pangaea_tpu_torch.kernels import scan
     d = os.path.join(smoke_dir(), what)
     shutil.rmtree(d, ignore_errors=True)
     fe = FeatureExtractor(FeatureConfig(**feature), d, device="cuda")
-    scan.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = fe.extract_features(**inputs)
@@ -735,7 +909,7 @@ def run_step1(what: str, inputs: dict, expect, kernels, spill: str,
            else (stats["spill"], stats["store"]))
     if ran != (spill, store):
         raise AssertionError(f"{what}: ran {ran}, expected {(spill, store)}")
-    check_launched(what, launches, kernels, absent)
+    check_launched(what, launches, kernels, tuple(absent) + ADAM)
     if spill == "table" and any(launches.values()):
         raise AssertionError(f"{what}: the table path launched {launches}")
     if expect is not None:
@@ -924,7 +1098,6 @@ def phase_assembly(run: dict, fq: str, truth: dict) -> dict:
     from collections import Counter
     from pangaea_tpu_torch.asm.fasta import iter_fasta
     from pangaea_tpu_torch.config import ClusterConfig, PangaeaConfig
-    from pangaea_tpu_torch.kernels import scan
     from pangaea_tpu_torch.pipeline import Pipeline, check_step_finished
     out = run["out"]
     cfg = PangaeaConfig(interleaved_reads=fq, output=out, steps="4",
@@ -934,7 +1107,7 @@ def phase_assembly(run: dict, fq: str, truth: dict) -> dict:
     log("assembly: simulated reads per species "
         + json.dumps({s: n * reads_per_bc for s, n in sorted(species.items())}))
     pipe = Pipeline(cfg, device="cuda")
-    scan.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pipe.run()
@@ -945,7 +1118,7 @@ def phase_assembly(run: dict, fq: str, truth: dict) -> dict:
     check_builtin("assembly", stats["backend"])
     if not check_step_finished(out, "4"):
         raise AssertionError("assembly: step 4 left no marker")
-    check_launched("assembly", launches, ("cummax",))
+    check_launched("assembly", launches, ("cummax",), ADAM)
     lengths = [len(s) for _, s in iter_fasta(os.path.join(out,
                                                           "final_asm.fa"))]
     share = stats["mapped_bases"] / max(stats["read_bases"], 1)
@@ -1113,7 +1286,6 @@ def phase_autok(run: dict, fq: str, truth: dict) -> dict:
                                            select_k_with_bic)
     from pangaea_tpu_torch.cluster.metrics import adjusted_rand_score
     from pangaea_tpu_torch.config import PangaeaConfig
-    from pangaea_tpu_torch.kernels import scan
     from pangaea_tpu_torch.pipeline import Pipeline, check_step_finished
     from pangaea_tpu_torch.utils import cpu_count
     out = os.path.join(smoke_dir(), "autok_run")
@@ -1122,14 +1294,14 @@ def phase_autok(run: dict, fq: str, truth: dict) -> dict:
                     os.path.join(out, "2.vae"))
     cfg = PangaeaConfig(interleaved_reads=fq, output=out, steps="3")
     pipe = Pipeline(cfg, device="cuda")
-    scan.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pipe.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
-    check_launched("auto-k", launches, (), ALL_SCANS)
+    check_launched("auto-k", launches, (), ALL_SCANS + ADAM)
     if not check_step_finished(out, "3"):
         raise AssertionError("auto-k: step 3 left no marker")
     st = pipe.cluster_stats
@@ -1239,11 +1411,10 @@ def run_driver(what: str, argv: list, kernels, absent=()) -> dict:
     are taken off again."""
     import logging
     import torch
-    from pangaea_tpu_torch.kernels import scan
     from pangaea_tpu_torch.pipeline import driver
     root = logging.getLogger()
     before = list(root.handlers)
-    scan.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
@@ -1262,7 +1433,7 @@ def run_driver(what: str, argv: list, kernels, absent=()) -> dict:
              for k, v in res["pipeline"].timer.stages.items()}
     step0 = {k: round(v, 3) for k, v in res["step0_s"].items()}
     log(f"{what}: driver on cuda in {wall:.3f} s; step 0 {step0}; steps "
-        f"{steps}; scan launches {launches}")
+        f"{steps}; kernel launches {launches}")
     if res["pipeline"].feature_extractor is not None:
         log_stats(what, res["pipeline"].feature_extractor.stats)
     return {"out": out, "wall_s": wall, "launches": launches,
@@ -1283,7 +1454,7 @@ def driver_10x(r1: str, r2: str, truth: dict) -> dict:
     run = run_driver("driver-10x", [
         "-s", "10x", "-1", r1, "-2", r2, "-o", out, "-c", str(N_CLUSTERS),
         "-t", str(os.cpu_count() or 1), "-st", "1,2,3", "--skip-external"],
-        FILL_SCANS)
+        FILL_SCANS + ADAM)
     want = sorted(hash(r) for p in (r1, r2) for r in iter_records(p))
     got = sorted(hash(r) for r in iter_records(run["sorted"]))
     if got != want:
@@ -1323,7 +1494,7 @@ def driver_stlfr(paths: list, truth: dict) -> dict:
     run = run_driver("driver-stlfr", [
         "-s", "stlfr", "-1", r1, "-2", r2, "-w", wl, "-o", out,
         "-c", str(N_CLUSTERS), "-t", str(os.cpu_count() or 1),
-        "-st", "1,2,3", "--skip-external"], FILL_SCANS)
+        "-st", "1,2,3", "--skip-external"], FILL_SCANS + ADAM)
     tags = sorted_tags("driver-stlfr", run["sorted"])
     ari, n_labelled, clusters = cluster_ari(out, truth)
     log(f"driver-stlfr: {2 * len(tags)} records sorted "
@@ -1365,7 +1536,7 @@ def driver_tellseq(fq: str) -> dict:
     shutil.rmtree(out, ignore_errors=True)
     run = run_driver("driver-tellseq", [
         "-s", "tellseq", "-1", paths[0], "-2", paths[1], "-I", paths[2],
-        "-o", out, "-st", "0"], (), ALL_SCANS)
+        "-o", out, "-st", "0"], (), ALL_SCANS + ADAM)
     n = 0
     for rec in iter_records(run["sorted"]):
         head = rec.split(b"\n", 1)[0][1:].decode()
@@ -1414,7 +1585,8 @@ def driver_hybrid(contigs_fa: str, r1: str, r2: str) -> dict:
     shutil.rmtree(out, ignore_errors=True)
     run = run_driver("driver-hybrid", [
         "-s", "short", "-1", shorts[0], "-2", shorts[1], "-l", longreads,
-        "-o", out, "-st", "0"], ("cummax",), ("cummin_reverse", "cumsum"))
+        "-o", out, "-st", "0"], ("cummax",),
+        ("cummin_reverse", "cumsum") + ADAM)
     tags = sorted_tags("driver-hybrid", run["sorted"])
     share = 1.0 - tags.count(b"~~~") / max(len(tags), 1)
     log(f"driver-hybrid: {len(lengths)} long reads of up to "
@@ -1483,7 +1655,6 @@ def phase_step2(run: dict, fq: str, truth: dict) -> dict:
     import torch
     from pangaea_tpu_torch.cluster.metrics import adjusted_rand_score
     from pangaea_tpu_torch.config import ClusterConfig, PangaeaConfig
-    from pangaea_tpu_torch.kernels import scan
     from pangaea_tpu_torch.pipeline import Pipeline
     runs = {}
     for name, loop, dtype in (("fused", "fused", "float32"),
@@ -1498,19 +1669,28 @@ def phase_step2(run: dict, fq: str, truth: dict) -> dict:
         os.environ["PANGAEA_TRAIN_LOOP"] = loop
         try:
             pipe = Pipeline(cfg, device="cuda")
-            scan.reset_launches()
+            reset_launches()
             torch.cuda.synchronize()
             pipe.run()
             torch.cuda.synchronize()
         finally:
             del os.environ["PANGAEA_TRAIN_LOOP"]
-        check_launched(f"step2-{name}", launch_counts(), (), ALL_SCANS)
+        launches = launch_counts()
+        if loop == "fused":
+            check_launched(f"step2-{name}", launches, ADAM, ALL_SCANS)
+        else:
+            check_launched(f"step2-{name}", launches, (), ALL_SCANS + ADAM)
         ari, n_labelled, clusters = cluster_ari(out, truth)
         secs = {k: round(v.seconds, 3) for k, v in pipe.timer.stages.items()}
+        replays = pipe.train_stats["phase_times"].get("graph_units", 0)
+        per_unit = launches["adam_step"] / replays if replays else 0
         log(f"step2-{name}: {secs}; {train_line(pipe.train_stats)}; ARI vs "
-            f"truth {ari:.6f} on {n_labelled} labelled barcodes")
+            f"truth {ari:.6f} on {n_labelled} labelled barcodes; Adam "
+            f"kernel launches {launches['adam_step']} ({per_unit:g} per "
+            f"replayed unit)")
         runs[name] = {"hist": pipe.train_stats["val_history"],
-                      "clusters": clusters, "ari": ari, "secs": secs}
+                      "clusters": clusters, "ari": ari, "secs": secs,
+                      "launches": launches}
 
     def cross(a: str, b: str) -> float:
         ca, cb = runs[a]["clusters"], runs[b]["clusters"]
@@ -1573,7 +1753,6 @@ def run_sharded_step1(what: str, inputs: dict, cfg, expect_dir: str,
     write their CSVs before returning)."""
     import torch
     from pangaea_tpu_torch.features import FeatureExtractor
-    from pangaea_tpu_torch.kernels import scan
     from pangaea_tpu_torch.parallel import ShardedFeatureExtractor
     d = os.path.join(smoke_dir(), what)
     one = d + "-one-device"
@@ -1585,7 +1764,7 @@ def run_sharded_step1(what: str, inputs: dict, cfg, expect_dir: str,
     torch.cuda.synchronize()
     one_s = time.perf_counter() - t0
     fe = ShardedFeatureExtractor(cfg, d, device="cuda")
-    scan.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     names, _, _ = fe.extract_features(**inputs)
@@ -1596,7 +1775,7 @@ def run_sharded_step1(what: str, inputs: dict, cfg, expect_dir: str,
         f"{secs:.3f} s (one device {one_s:.3f} s); scan launches "
         f"{launches}")
     log_stats(what, fe.stats)
-    check_launched(what, launches, kernels, absent)
+    check_launched(what, launches, kernels, tuple(absent) + ADAM)
     if csv_bytes(fe) != expected_csvs(expect_dir, cfg):
         raise AssertionError(f"{what}: CSV bytes differ from {expect_dir}")
     log(f"{what}: {len(names)} barcodes, CSVs byte-equal to {expect_dir}")
@@ -1612,7 +1791,6 @@ def check_sharded_lloyd(run: dict) -> dict:
     import torch
     from pangaea_tpu_torch.cluster.kmeans import kmeans_lloyd
     from pangaea_tpu_torch.cluster.metrics import adjusted_rand_score
-    from pangaea_tpu_torch.kernels import scan
     from pangaea_tpu_torch.parallel import sharded_lloyd
     emb = np.load(os.path.join(run["out"], "2.vae", "latent.npz"))["arr_0"]
     emb = np.ascontiguousarray(emb, dtype=np.float32)
@@ -1624,7 +1802,7 @@ def check_sharded_lloyd(run: dict) -> dict:
     lloyd = sharded_lloyd(device="cuda")
     x = torch.from_numpy(emb).cuda()
     tol = np.float32(1e-4 * np.mean(np.var(emb, axis=0)))
-    scan.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     _, l2, in2, it2 = lloyd(x, torch.ones(len(emb), device="cuda"),
@@ -1633,7 +1811,7 @@ def check_sharded_lloyd(run: dict) -> dict:
     l2 = l2.cpu().numpy()
     secs = time.perf_counter() - t2
     launches = launch_counts()
-    check_launched("sharded-lloyd", launches, (), ALL_SCANS)
+    check_launched("sharded-lloyd", launches, (), ALL_SCANS + ADAM)
     ari = adjusted_rand_score(l1, l2)
     log(f"sharded-lloyd: {emb.shape} latent, {it2} iterations in {secs:.3f}"
         f" s (one device {it1} in {t1 - t0:.3f} s), inertia "
@@ -1653,7 +1831,6 @@ def check_sharded_units(run: dict) -> dict:
     import numpy as np
     import torch
     from pangaea_tpu_torch.config import ModelConfig
-    from pangaea_tpu_torch.kernels import scan
     from pangaea_tpu_torch.model import BarcodeDataset, VAE, VAETrainer
     from pangaea_tpu_torch.model.train import FusedState
     from pangaea_tpu_torch.parallel import sharded_unit_chunk
@@ -1691,14 +1868,14 @@ def check_sharded_units(run: dict) -> dict:
     t1 = time.perf_counter()
     tr, es, opt, gen = trainer()
     chunk = sharded_unit_chunk(tr, device="cuda")
-    scan.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     rows2 = chunk(es, opt, gen, abd, tnf, uidx, ucnt, np.ones(UNITS_C, bool),
                   vidx, vcnt).cpu().numpy()
     secs = time.perf_counter() - t2
     launches = launch_counts()
-    check_launched("sharded-units", launches, (), ALL_SCANS)
+    check_launched("sharded-units", launches, (), ALL_SCANS + ADAM)
     ran = rows2[:, 7] != 0
     rel = float(np.max(np.abs(rows2[ran, 0] - rows1[ran, 0])
                        / np.abs(rows1[ran, 0]), initial=0.0))
@@ -1894,20 +2071,19 @@ def phase_merge(run: dict) -> dict:
     ASM_MIN_BASES bases."""
     import torch
     from pangaea_tpu_torch.asm.fasta import iter_fasta
-    from pangaea_tpu_torch.kernels import scan
     from pangaea_tpu_torch.pipeline import merge
     roots = {dev: os.path.join(smoke_dir(), f"merge_{dev}")
              for dev in ("cuda", "cpu")}
     for root in roots.values():
         merge_root(root, run["out"])
-    scan.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     merge.main([roots["cuda"], "metaspades", "--device", "cuda"])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = launch_counts()
-    check_launched("merge", launches, ("cummax",))
+    check_launched("merge", launches, ("cummax",), ADAM)
     t1 = time.perf_counter()
     stats = {}
     merge.final_merge(roots["cpu"], "metaspades", device="cpu", stats=stats)
@@ -1960,7 +2136,6 @@ def phase_trace(fq31: str) -> dict:
     'pipeline' range."""
     import torch
     from pangaea_tpu_torch.config import FeatureConfig, PangaeaConfig
-    from pangaea_tpu_torch.kernels import scan
     from pangaea_tpu_torch.pipeline import Pipeline
     out = os.path.join(smoke_dir(), "trace_run")
     tdir = os.path.join(smoke_dir(), "trace")
@@ -1972,7 +2147,7 @@ def phase_trace(fq31: str) -> dict:
     os.environ["PANGAEA_TPU_TRACE"] = tdir
     try:
         pipe = Pipeline(cfg, device="cuda")
-        scan.reset_launches()
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipe.run()
@@ -1981,7 +2156,7 @@ def phase_trace(fq31: str) -> dict:
     finally:
         del os.environ["PANGAEA_TPU_TRACE"]
     launches = launch_counts()
-    check_launched("trace", launches, FILL_SCANS)
+    check_launched("trace", launches, FILL_SCANS, ADAM)
     files = os.listdir(tdir)
     if len(files) != 1:
         raise AssertionError(f"trace: {files} in {tdir}")
@@ -2101,6 +2276,7 @@ def main() -> int:
     phase("build", phase_build)
     phase("kernels", phase_kernels)
     phase("repeat", phase_repeat)
+    adam_timed = phase("adam", phase_adam)
     ((fq,), truth), ((r1, r2), ptruth), ((fq31,), _), stlfr = phase(
         "simulate", simulate_all, [
             (sim_data, ("data", SIM, False)),
@@ -2120,7 +2296,7 @@ def main() -> int:
     autok = phase("auto-k", phase_autok, run, fq, truth)
     drivers = phase("driver", phase_driver, (r1, r2), ptruth, stlfr, fq,
                     os.path.join(run["out"], "final_asm.fa"))
-    phase("step2", phase_step2, run, fq, truth)
+    step2 = phase("step2", phase_step2, run, fq, truth)
     shards = phase("parallel", phase_parallel, fq, run, r1, r2, paired, k21,
                    fq31)
     merged = phase("merge", phase_merge, run)
@@ -2156,6 +2332,8 @@ def main() -> int:
     records.append(mapper_cummax_record(hybrid.pop("boundary"),
                                         hybrid["launches"]["cummax"],
                                         "driver-hybrid"))
+    records.append(adam_record(adam_timed, {
+        **by_path, **{f"step2-{k}": v["launches"] for k, v in step2.items()}}))
     copies = {str(n): copy_ms(n) for n in sorted({n_main, n_paired, n_k21,
                                                   n_map, n_hybrid,
                                                   SCAN_CAP})}

@@ -48,9 +48,33 @@ state, checkpoint bytes and the host ``RandomState`` afterwards.
   best state nor the EarlyStopping state, and their rows say they did
   not run.
 - The host rng is rolled back to the snapshot taken after the stop
-  unit's val draw, so ``dump_latent`` sees the stepwise stream.
+  unit's val draw, so ``dump_latent`` sees the stepwise stream, and the
+  ``torch.Generator`` to its state after the stop unit.
 - When a chunk improved, its best state is copied to pinned host memory
   behind the chunk's work and pickled after the next chunk is launched.
+
+On a card the fused loop replays its units as CUDA graphs
+(:class:`_UnitGraphs`), so that the host no longer launches a unit's
+thousands of kernels one by one. The first chunk is the first epoch, and
+its units run eagerly (on a side stream) with ``torch.optim.Adam``; then
+one unit of each shape — its train batch counts, so at most two shapes a
+fit, the last unit of an epoch being shorter when ``eval_every_batches``
+does not divide the epoch — is captured with its train batches, val pass
+and EarlyStopping transition, and replayed for every later unit of that
+shape, with the unit's indices copied into static buffers first. The
+EarlyStopping state is updated in place, so every replay reads and writes
+the same memory. Inside the graphs Adam is the kernel of
+``csrc/adam.cu`` (``kernels.adam.KernelAdam``), which takes over eager
+Adam's moments and step count and reads each step's scalars from a
+device table: it matches eager Adam bit for bit, and the fit's
+``torch.Generator`` is registered with each graph, so dropout masks and
+noise draw the eager offsets. The graphed loop gives the same bits as
+the eager one in every observable above. The host launches at most
+``UNITS_AHEAD`` units past the last unit whose stop flag has landed, so a
+stop wastes at most that many (masked) units. The graphs and their memory
+are freed when the fit returns. Off a card, on ``parallel.dist``'s
+sharded units and in the stepwise loop nothing is captured and
+``torch.optim.Adam`` steps, as before.
 
 Random streams: the host ``RandomState`` draws (epoch sampling, val
 sampling, the latent permutation) are the JAX package's calls in its
@@ -63,6 +87,7 @@ so the initial model is the same on every device.
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import pickle
@@ -72,6 +97,8 @@ import numpy as np
 import torch
 
 from pangaea_tpu_torch.config import ModelConfig
+from pangaea_tpu_torch.kernels import adam
+from pangaea_tpu_torch.kernels.adam import KernelAdam
 from pangaea_tpu_torch.model.dataset import BarcodeDataset, batch_index_matrix
 from pangaea_tpu_torch.model.vae import VAE, embed, loss_weights, unlabeled_loss
 from pangaea_tpu_torch.profiling import span
@@ -166,6 +193,11 @@ class _StopFlags:
     def landed(self, i: int) -> bool:
         return self.events[i] is None or self.events[i].query()
 
+    def wait(self, i: int) -> None:
+        """Block the host until unit ``i``'s flag has landed."""
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+
 
 def flat_state(model: torch.nn.Module) -> torch.Tensor:
     """The model's state dict as one flat device tensor."""
@@ -185,6 +217,94 @@ class FusedState:
         self.stopped = torch.zeros((), dtype=torch.bool, device=device)
         self.delta32 = torch.tensor(np.float32(cfg.early_stop_delta),
                                     device=device)
+
+
+# units the graphed loop may launch past the last unit whose stop flag has
+# landed: an early stop wastes at most this many units
+UNITS_AHEAD = 4
+
+
+@functools.cache
+def _side_stream(index: int) -> torch.cuda.Stream:
+    """The process's one side stream on card ``index``, for the graphed
+    loop's eager units and captures. cuBLAS keeps a workspace for each
+    stream it has run on until the process ends, so a new stream for
+    every fit would add a workspace to the card's memory every fit."""
+    return torch.cuda.Stream(index)
+
+
+class _UnitGraphs:
+    """The fused loop's units on a card as CUDA graphs, one per unit shape
+    (the train ``counts``; the val counts are the fit's own). A unit whose
+    shape has no graph runs eagerly on a side stream; :meth:`capture`
+    records one unit of each shape asked for, and :meth:`run` replays it
+    for every later unit of that shape with the unit's indices copied into
+    static buffers. The first capture hands the optimizer's state to
+    :class:`KernelAdam`, which steps inside the graphs. ``gen`` is
+    registered with each graph, so its replays draw the Philox offsets the
+    eager units would."""
+
+    def __init__(self, trainer: "VAETrainer", es: FusedState, opt, gen,
+                 abd_all, tnf_all, vcounts, steps: int,
+                 t_shape: Tuple[int, int], v_shape: Tuple[int, int]):
+        dev = trainer.device
+        self.unit = lambda opt, counts, t_rows, v_rows: trainer._run_unit(
+            es, opt, gen, abd_all, tnf_all, counts, t_rows, v_rows, vcounts)
+        self.opt, self.gen, self.steps = opt, gen, steps
+        self.params = list(trainer.model.parameters())
+        self.side = _side_stream(dev.index if dev.index is not None
+                                 else torch.cuda.current_device())
+        self.t_static = torch.zeros(t_shape, dtype=torch.int64, device=dev)
+        self.v_static = torch.zeros(v_shape, dtype=torch.int64, device=dev)
+        # shape -> (graph, row, stop, the Adam launches it recorded)
+        self.graphs: Dict[tuple, tuple] = {}
+
+    def run(self, counts, t_rows, v_rows):
+        """Unit ``(row, stop, replayed)``."""
+        key = tuple(int(c) for c in counts)
+        entry = self.graphs.get(key)
+        if entry is not None:
+            graph, row, stop, launches = entry
+            self.t_static.copy_(t_rows)
+            self.v_static.copy_(v_rows)
+            graph.replay()
+            adam.count_replays(launches)
+            return row, stop, True
+        cur = torch.cuda.current_stream()
+        self.side.wait_stream(cur)
+        with torch.cuda.stream(self.side):
+            row, stop = self.unit(self.opt, counts, t_rows, v_rows)
+        cur.wait_stream(self.side)
+        return row, stop, False
+
+    def missing(self, shapes) -> list:
+        """The shapes among ``shapes`` that have no graph."""
+        return sorted({tuple(int(c) for c in s) for s in shapes}
+                      - set(self.graphs))
+
+    def capture(self, keys) -> None:
+        if not isinstance(self.opt, KernelAdam):
+            self.opt = KernelAdam(self.opt, self.steps)
+        for key in keys:
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.gen)
+            before = adam.adam_step.captured
+            with torch.cuda.graph(graph, stream=self.side):
+                row, stop = self.unit(self.opt, list(key), self.t_static,
+                                      self.v_static)
+            self.graphs[key] = (graph, row, stop,
+                                adam.adam_step.captured - before)
+
+    def close(self) -> None:
+        """Free the graphs, their memory pools and the gradients that
+        live there; raise if the Adam kernel ran past its table."""
+        for graph, _, _, _ in self.graphs.values():
+            graph.reset()
+        self.graphs.clear()
+        for p in self.params:
+            p.grad = None
+        if isinstance(self.opt, KernelAdam):
+            self.opt.check()
 
 
 class VAETrainer:
@@ -287,14 +407,16 @@ class VAETrainer:
                                        t_rows[j, :cnt], shard, draws)
         val = self._val_total(gen, abd_all, tnf_all, v_rows, vcounts,
                               shard, draws)
+        # in place, so that a graph's replays read and write the same memory
         live = ~es.stopped
         improved = live & ~((-val - es.best_score) <= es.delta32)
-        es.counter = torch.where(improved, 0, torch.where(
-            live, es.counter + 1, es.counter))
+        es.counter.copy_(torch.where(improved, 0, torch.where(
+            live, es.counter + 1, es.counter)))
         stop = live & ~improved & (es.counter >= self.cfg.patience)
-        es.best_score = torch.where(improved, -val, es.best_score)
-        es.best_flat = torch.where(improved, flat_state(model), es.best_flat)
-        es.stopped = es.stopped | stop
+        es.best_score.copy_(torch.where(improved, -val, es.best_score))
+        es.best_flat.copy_(torch.where(improved, flat_state(model),
+                                       es.best_flat))
+        es.stopped.copy_(es.stopped | stop)
         row = torch.cat([val[None], stats / len(counts),
                          torch.stack([improved, stop, live]).float()])
         return row, stop
@@ -396,13 +518,15 @@ class VAETrainer:
                    ) -> StateDict:
         """The fused loop (module docstring): chunks of units, the
         EarlyStopping state and the best state on the device, one host
-        read per chunk. ``phase_times`` holds the host seconds spent
-        building chunks (``build``), launching their units
+        read per chunk; on a card, units replayed as CUDA graphs.
+        ``phase_times`` holds the host seconds spent building chunks
+        (``build``), capturing graphs (``capture``), launching units
         (``dispatch``), waiting for their rows (``sync``) and saving
         checkpoints (``ckpt_io``), each from the span of that name
-        (``step2.build``, ``step2.dispatch``, ``step2.sync``,
-        ``step2.ckpt``), with the ``chunks`` and the ``units``
-        launched."""
+        (``step2.build``, ``step2.capture``, ``step2.dispatch``,
+        ``step2.sync``, ``step2.ckpt``), with the ``chunks``, the
+        ``units`` launched and the ``graph_units`` among them that were
+        replays."""
         cfg, model, dev = self.cfg, self.model, self.device
         rng = rng or np.random.RandomState(cfg.seed)
         os.makedirs(model_dir, exist_ok=True)
@@ -437,8 +561,10 @@ class VAETrainer:
         C = chunk_units(total_units, U, vnb, bsz)
 
         # snapshots[g]: the rng state right after unit g's val draw (the
-        # stepwise loop's stop point)
+        # stepwise loop's stop point); gen_states[g]: the generator's
+        # right after unit g was launched
         snapshots: Dict[int, tuple] = {}
+        gen_states: Dict[int, torch.Tensor] = {}
 
         def units():
             g = 0
@@ -458,6 +584,9 @@ class VAETrainer:
         names = list(model.state_dict())
         shapes = [v.shape for v in model.state_dict().values()]
         es = FusedState(model, cfg, dev)
+        graphs = (_UnitGraphs(self, es, opt, gen, abd_all, tnf_all, vcounts,
+                              cfg.epochs * nb_epoch, (U, bsz), (vnb, bsz))
+                  if cuda else None)
         rows_dev = torch.zeros((C, 8), dtype=torch.float32, device=dev)
         flags = _StopFlags(C, dev)
         best: Dict[str, Optional[StateDict]] = {"state": None}
@@ -485,17 +614,24 @@ class VAETrainer:
                 save_params(ckpt, state)
             pt["ckpt_io"] += s.seconds
 
-        pt = self.phase_times = {"build": 0.0, "dispatch": 0.0, "sync": 0.0,
-                                 "ckpt_io": 0.0, "chunks": 0, "units": 0}
+        pt = self.phase_times = {"build": 0.0, "capture": 0.0,
+                                 "dispatch": 0.0, "sync": 0.0,
+                                 "ckpt_io": 0.0, "chunks": 0, "units": 0,
+                                 "graph_units": 0}
         self.val_history = []
         gen_units = units()
         done_units = 0
         stopped_at = None
         log.info("train start")
         while done_units < total_units and stopped_at is None:
+            # on a card the first chunk is the first epoch, whose units
+            # run eagerly (a warm-up, and Adam's state); each later chunk
+            # captures the shapes it finds without a graph
+            take = min(C, total_units - done_units)
+            if graphs is not None and done_units == 0:
+                take = min(take, upe)
             with span("step2.build") as s:
-                chunk = [next(gen_units)
-                         for _ in range(min(C, total_units - done_units))]
+                chunk = [next(gen_units) for _ in range(take)]
                 t_np = np.zeros((C, U, bsz), np.int32)
                 v_np = np.zeros((C, vnb, bsz), np.int32)
                 for i, (_, _, nb_u, _, tm, _, vm) in enumerate(chunk):
@@ -504,9 +640,18 @@ class VAETrainer:
                 rows_dev.zero_()
             pt["build"] += s.seconds
 
+            todo = ([] if graphs is None or done_units == 0
+                    else graphs.missing(u[5] for u in chunk))
+            if todo:
+                with span("step2.capture") as s:
+                    graphs.capture(todo)
+                pt["capture"] += s.seconds
+
             with span("step2.dispatch") as s:
                 polled, halt = 0, False
-                for i, (_, _, _, _, _, counts, _) in enumerate(chunk):
+                for i, (g, _, _, _, _, counts, _) in enumerate(chunk):
+                    if i >= UNITS_AHEAD:
+                        flags.wait(i - UNITS_AHEAD)
                     # stop launching once an earlier unit's stop flag
                     # landed
                     while polled < i and flags.landed(polled):
@@ -514,9 +659,16 @@ class VAETrainer:
                         polled += 1
                     if halt:
                         break
-                    rows_dev[i], stop = self._run_unit(
-                        es, opt, gen, abd_all, tnf_all, counts, t_idx[i],
-                        v_idx[i], vcounts)
+                    if graphs is None:
+                        row, stop = self._run_unit(
+                            es, opt, gen, abd_all, tnf_all, counts,
+                            t_idx[i], v_idx[i], vcounts)
+                    else:
+                        row, stop, replayed = graphs.run(counts, t_idx[i],
+                                                         v_idx[i])
+                        pt["graph_units"] += replayed
+                    rows_dev[i] = row
+                    gen_states[g] = gen.get_state()
                     flags.put(i, stop)
                     pt["units"] += 1
             pt["dispatch"] += s.seconds
@@ -558,9 +710,12 @@ class VAETrainer:
                 pt["ckpt_io"] += s.seconds
 
         drain_ckpt()
+        if graphs is not None:
+            graphs.close()
         if stopped_at is not None:
             log.info("early stop triggered")
             rng.set_state(snapshots[stopped_at])
+            gen.set_state(gen_states[stopped_at])
         if best["state"] is None:  # epochs == 0: the initial model
             best["state"] = host_state(model)
             save_params(ckpt, best["state"])

@@ -431,6 +431,14 @@ def test_sharded_unit_chunk_matches_jax(train_run, train_inputs):
     np.testing.assert_allclose(_out_w(state), w1, **PARAM)
 
 
+def test_sharded_unit_chunk_runs_no_graph(train_run):
+    """The sharded units stay eager: no unit is a replay and the Adam
+    kernel never steps (the fused loop graphs only its own units)."""
+    _, results = train_run
+    for r in results:
+        assert r["unit_graphs"] == (0, 0)
+
+
 def test_cuda_device_on_gloo_group_raises(tmp_path):
     """A CUDA device on the gloo group raises; nothing moves to the CPU
     to make a collective work."""

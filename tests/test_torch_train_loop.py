@@ -228,3 +228,37 @@ def test_fused_host_draws_equal_jax_fused(tmp_path, n, bsz, ev, epochs,
     s, j = trng.get_state(), jrng.get_state()
     assert s[0] == j[0] and (s[1] == j[1]).all() and s[2:] == j[2:]
     assert os.path.exists(tmp_path / "t" / "train_model.pk")
+
+
+@pytest.mark.parametrize("n,bsz,ev,epochs,patience", [GEOMETRIES[2],
+                                                     GEOMETRIES[3]])
+def test_fused_on_the_cpu_replays_no_graph(tmp_path, n, bsz, ev, epochs,
+                                           patience):
+    """Off a card the fused loop captures nothing: every unit runs
+    eagerly with torch.optim.Adam, in the chunks it always had."""
+    ds = BarcodeDataset(*_synth(n))
+    f = _fit("fused", ds, _cfg(bsz, ev, epochs, patience), tmp_path / "f")
+    assert f["pt"]["graph_units"] == 0 and f["pt"]["capture"] == 0.0
+    assert f["pt"]["units"] == len(f["hist"]) and f["pt"]["chunks"] == 1
+
+
+@pytest.mark.parametrize("chunk", [3, 40])
+def test_generator_after_a_stop_is_the_stepwise_one(monkeypatch, tmp_path,
+                                                    chunk):
+    """Units launched past the stop draw dropout masks and noise; the
+    fused loop rolls the generator back to its state after the stop
+    unit, where the stepwise loop leaves it."""
+    monkeypatch.setattr(ttrain, "chunk_units", lambda *a: chunk)
+    monkeypatch.setattr(ttrain._StopFlags, "landed", lambda self, i: False)
+    gens = []
+    make = ttrain.VAETrainer._generator
+    monkeypatch.setattr(ttrain.VAETrainer, "_generator",
+                        lambda self, off: gens.append(make(self, off))
+                        or gens[-1])
+    ds = BarcodeDataset(*_synth(90))
+    cfg = _cfg(8, 5, 40, 2)
+    s = _fit("stepwise", ds, cfg, tmp_path / "s")
+    f = _fit("fused", ds, cfg, tmp_path / "f")
+    _assert_same(s, f)
+    assert f["pt"]["units"] > len(f["hist"])
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())

@@ -187,6 +187,7 @@ def train_battery(rank: int, world: int, inp: dict) -> dict:
     """sharded_train_block (JAX draws, then generator draws with dropout)
     and sharded_unit_chunk (JAX draws) from the same weights."""
     import torch
+    from pangaea_tpu_torch.kernels import adam
     from pangaea_tpu_torch.model.train import FusedState, host_state
     from pangaea_tpu_torch.parallel import (sharded_train_block,
                                             sharded_unit_chunk)
@@ -216,6 +217,8 @@ def train_battery(rank: int, world: int, inp: dict) -> dict:
         _noise(inp["unit_noise"]))
     res["unit"] = (rows.numpy(), host_state(tr.model), int(es.counter),
                    bool(es.stopped))
+    res["unit_graphs"] = (tr.phase_times.get("graph_units", 0),
+                          adam.adam_step.launches)
     return res
 
 
