@@ -2,8 +2,9 @@
 plain reference (reference.py), one number per layer, each with a limit
 from the configuration's ``limits``.
 
-- ``step0_records_off``: records of step 0's barcode-sorted FASTQ that
-  differ from the reference's sort (raw input only);
+- step 0's numbers, from the platform's module (``step0_numbers``): on
+  raw stLFR ``step0_records_off``, the records of step 0's barcode-sorted
+  FASTQ that differ from the reference's sort (:func:`step0_records_off`);
 - ``step1_entries_off``: barcode names and matrix entries of step 1's
   abundance and TNF CSVs that differ from the reference's;
 - ``latent_gap``: the largest difference between a barcode's latent
@@ -22,15 +23,22 @@ from __future__ import annotations
 
 import collections
 import csv
+import functools
 import glob
 import gzip
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Dict, Optional
 
 import numpy as np
 
 from benchmark import gen, reference
+
+# step 0's barcode-sorted interleaved FASTQ, under a pass's output directory;
+# the pipeline reads it after the driver's entry
+STEP0_SORTED = os.path.join("0_preprocess_reads",
+                            "interleaved_link_reads.sorted.fastq")
 
 
 @dataclass
@@ -47,12 +55,8 @@ class Stream:
 
 
 def stream(inp: gen.Inputs) -> Stream:
-    if inp.platform == "10x":
-        return Stream(inp.seq1, inp.seq2, inp.qual1, inp.qual2,
-                      gen.tenx_headers(inp), inp.pair_barcode, inp.barcodes)
-    order, headers, bc = reference.stlfr_sorted(inp)
-    return Stream(inp.seq1[order], inp.seq2[order], inp.qual1[order],
-                  inp.qual2[order], headers, bc, inp.barcodes)
+    """The platform module's stream of ``inp``."""
+    return inp.module.stream(inp)
 
 
 def pair_bytes(s: Stream, sel: Optional[np.ndarray] = None) -> np.ndarray:
@@ -89,7 +93,12 @@ class Reference:
     tnf: np.ndarray
     latent_names: np.ndarray
     latent: np.ndarray
-    sorted_bytes: Optional[bytes] = None
+    module: ModuleType = field(default=None, repr=False)  # the platform's
+
+    @functools.cached_property
+    def stream_bytes(self) -> bytes:
+        """The interleaved FASTQ bytes of the whole stream."""
+        return pair_bytes(self.stream).tobytes()
 
 
 def build_reference(inp: gen.Inputs, binning: dict, device,
@@ -99,9 +108,14 @@ def build_reference(inp: gen.Inputs, binning: dict, device,
                                          s.barcodes, binning, device)
     lnames, mu = reference.latent(names, abd, tnf, binning, device,
                                   precision)
-    sorted_bytes = (pair_bytes(s).tobytes() if inp.platform == "stlfr"
-                    else None)
-    return Reference(s, names, abd, tnf, lnames, mu, sorted_bytes)
+    return Reference(s, names, abd, tnf, lnames, mu, inp.module)
+
+
+def step0_records_off(out_dir: str, ref: Reference) -> int:
+    """Records of step 0's sorted FASTQ unlike the reference's stream."""
+    path = os.path.join(out_dir, STEP0_SORTED)
+    got = open(path, "rb").read() if os.path.isfile(path) else b""
+    return records_off(got, ref.stream_bytes)
 
 
 def _read_csv_gz(path: str):
@@ -183,13 +197,9 @@ def bin_records_off(cluster_dir: str, labels: np.ndarray, names: np.ndarray,
 
 def compare_pass(out_dir: str, ref: Reference, binning: dict
                  ) -> Dict[str, float]:
-    """Every number of one pass's output directory."""
-    nums: Dict[str, float] = {}
-    if ref.sorted_bytes is not None:
-        path = os.path.join(out_dir, "0_preprocess_reads",
-                            "interleaved_link_reads.sorted.fastq")
-        got = open(path, "rb").read() if os.path.isfile(path) else b""
-        nums["step0_records_off"] = records_off(got, ref.sorted_bytes)
+    """Every number of one pass's output directory, step 0's (from the
+    platform's module) first."""
+    nums: Dict[str, float] = dict(ref.module.step0_numbers(out_dir, ref))
     nums["step1_entries_off"] = step1_entries_off(
         os.path.join(out_dir, "1.features"), ref, binning)
     names, mu = _program_latent(os.path.join(out_dir, "2.vae"))

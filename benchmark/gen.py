@@ -1,21 +1,23 @@
 """Input generator: linked reads of a staggered mock community, from a seed.
 
-One general generator reads a configuration (the sample, the platform's
-read geometry) and a traffic mix (barcodes, pairs per barcode, the input
-kind) and writes the files a pass reads. Every seed gets the same amount
-of work:
+A configuration (the sample, the platform's read geometry) and a traffic
+mix (barcodes, pairs per barcode, the entry) give the files a pass reads.
+What is shared lives here: :func:`pairs` draws the read pairs of every
+platform, and the FASTQ and gzip writers. What belongs to one platform,
+its barcodes, names, file layout and warm-up slice, lives in
+``platforms/<platform>.py`` (see ``harness.py``), which :func:`simulate`,
+:func:`write` and :func:`subset` reach through the configuration's
+``platform``. Every seed gets the same amount of work:
 
 - the barcode quota of each strain is the configuration's tier share of
   the barcodes, rounded by largest remainder (the same for every seed);
 - each strain's base composition is its stated GC content;
 - every barcode holds the same number of read pairs, drawn from one
-  molecule of ``molecule_len`` bases;
-- on stLFR, exactly ``round(unbarcoded_share * pairs)`` pairs lose their
-  barcode call (``0_0_0``), at most one per partition.
+  molecule of ``molecule_len`` bases.
 
 The seed draws only the bases, which barcode belongs to which strain, the
-molecule and read positions, the errors and the qualities (and on stLFR
-the whitelist, the partition triples and the raw file order).
+molecule and read positions, the errors and the qualities, and what the
+platform's module draws after them.
 
 The gzip files are concatenated gzip members compressed in parallel, as
 ``bgzip`` writes them. Records are built as byte arrays with numpy, not
@@ -25,13 +27,17 @@ read by read.
 from __future__ import annotations
 
 import concurrent.futures
+import importlib.util
 import os
 import zlib
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Dict, List
 
 import numpy as np
 
+# the checkout root: platforms/ is found under <root>/benchmark
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 # ASCII -> index into ACGT (0..3); 255 elsewhere
 _IDX = np.full(256, 255, np.uint8)
@@ -62,8 +68,9 @@ def strain_shares(cfg: dict) -> List[float]:
 @dataclass
 class Inputs:
     """What a pass reads, and what the reference needs to work out every
-    answer again. Per-pair arrays are in the order of the pipeline's input
-    file for 10x (barcode-sorted) and in raw file order for stLFR."""
+    answer again. Per-pair arrays are in the order the platform's module
+    writes them (for 10x the pipeline's barcode-sorted input, for stLFR
+    the raw files' order)."""
 
     files: Dict[str, str]
     n_pairs: int
@@ -79,6 +86,8 @@ class Inputs:
     platform: str
     raw_tags: np.ndarray = field(default=None)  # stLFR (n,) S: x_y_z
     whitelist: np.ndarray = field(default=None)  # stLFR (n_wl,) S
+    extra: dict = field(default_factory=dict)  # a platform's own arrays
+    module: ModuleType = field(default=None, repr=False)  # platforms/<p>.py
 
     @property
     def n_reads(self) -> int:
@@ -124,9 +133,14 @@ def _mutate(seq: np.ndarray, rng: np.random.Generator, error_rate: float,
     return np.where(low, _Q_LOW[q], _Q_HIGH[q])
 
 
-def simulate(cfg: dict, traffic: dict, seed: int) -> Inputs:
-    """The pairs of one pass, in memory (no files)."""
-    rng = np.random.default_rng(seed)
+def pairs(cfg: dict, traffic: dict, rng: np.random.Generator,
+          with_qual: bool):
+    """The read pairs every platform starts from, drawn from ``rng`` in a
+    fixed order: the genomes, each barcode's strain and molecule, each
+    pair's position, then each mate's errors and qualities. Returns
+    ``(pair_barcode, seq1, seq2, qual1, qual2, pair_strain)`` with
+    ``pairs_per_barcode`` pairs of each barcode in turn; qualities are all
+    'I' unless ``with_qual``."""
     n_strains = len(cfg["sample"]["strains"])
     B, P = int(traffic["barcodes"]), int(traffic["pairs_per_barcode"])
     L, ins = int(cfg["read_len"]), int(cfg["insert_len"])
@@ -143,46 +157,47 @@ def simulate(cfg: dict, traffic: dict, seed: int) -> Inputs:
     win = np.lib.stride_tricks.sliding_window_view(genomes, L, axis=1)
     seq1 = win[strain, start]
     seq2 = _COMP[win[strain, start + ins - L][:, ::-1]]
-    with_qual = cfg["platform"] == "10x"
     err, lq = float(cfg["error_rate"]), float(cfg.get("low_qual_rate", 0.0))
     qual1 = _mutate(seq1, rng, err, lq, with_qual)
     qual2 = _mutate(seq2, rng, err, lq, with_qual)
+    return pair_bc, seq1, seq2, qual1, qual2, strain
 
-    if cfg["platform"] == "10x":
-        words = np.sort(_distinct_words(rng, B, int(cfg["barcode_len"])))
-        names = np.char.add(b"r", np.char.zfill(
-            np.arange(n).astype("S"), 7))
-        return Inputs({}, n, L, seq1, seq2, qual1, qual2, names, pair_bc,
-                      words, strain, "10x")
-    if cfg["platform"] != "stlfr":
-        raise ValueError(f"no generator for platform {cfg['platform']!r}")
-    n_wl = int(cfg["whitelist_size"])
-    wl = _distinct_words(rng, n_wl, int(cfg["barcode_len"]))
-    # distinct partition triples, 1-based indices into the whitelist
-    tri = np.zeros((0, 3), np.int64)
-    while len(tri) < B:
-        draw = rng.integers(1, n_wl + 1, (2 * B, 3))
-        _, first = np.unique(np.concatenate([tri, draw]), axis=0,
-                             return_index=True)
-        tri = np.concatenate([tri, draw])[np.sort(first)]
-    tri = tri[:B]
-    barcodes = np.char.add(np.char.add(wl[tri[:, 0] - 1], wl[tri[:, 1] - 1]),
-                           wl[tri[:, 2] - 1])
-    n_un = int(round(float(cfg["unbarcoded_share"]) * n))
-    if n_un > B:
-        raise ValueError("at most one unbarcoded pair per partition")
-    lose = rng.permutation(B)[:n_un]
-    pair_bc = pair_bc.copy()
-    pair_bc[lose * P] = -1
-    tags = np.char.add(np.char.add(np.char.add(
-        tri[:, 0].astype("S"), b"_"), np.char.add(
-        tri[:, 1].astype("S"), b"_")), tri[:, 2].astype("S"))
-    tag = np.where(pair_bc >= 0, tags[np.repeat(np.arange(B), P)], b"0_0_0")
-    order = rng.permutation(n)  # raw reads come off the sequencer unsorted
-    names = np.char.add(b"sr", np.char.zfill(np.arange(n).astype("S"), 7))
-    return Inputs({}, n, L, seq1[order], seq2[order], qual1[order],
-                  qual2[order], names, pair_bc[order], barcodes,
-                  strain[order], "stlfr", raw_tags=tag[order], whitelist=wl)
+
+def take(inp: Inputs, sel: np.ndarray) -> Inputs:
+    """The pairs ``sel`` (a mask or index over pairs) of ``inp``, in the
+    same order; what is not per pair (barcodes, whitelist, ``extra``) is
+    kept whole."""
+    return Inputs({}, int(inp.pair_barcode[sel].size), inp.read_len,
+                  inp.seq1[sel], inp.seq2[sel], inp.qual1[sel],
+                  inp.qual2[sel], inp.names[sel], inp.pair_barcode[sel],
+                  inp.barcodes, inp.pair_strain[sel], inp.platform,
+                  raw_tags=None if inp.raw_tags is None else inp.raw_tags[sel],
+                  whitelist=inp.whitelist, extra=inp.extra,
+                  module=inp.module)
+
+
+# ---- the platform modules ---------------------------------------------------
+
+def platform(name: str, root: str = ROOT) -> ModuleType:
+    """``<root>/benchmark/platforms/<name>.py``, loaded by its path."""
+    path = os.path.join(root, "benchmark", "platforms", name + ".py")
+    if not os.path.isfile(path):
+        raise ValueError(f"no platform module {path}")
+    spec = importlib.util.spec_from_file_location(
+        "benchmark_platform_" + name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def simulate(cfg: dict, traffic: dict, seed: int, root: str = ROOT
+             ) -> Inputs:
+    """The pairs of one pass, in memory (no files), from the module of the
+    configuration's ``platform``."""
+    mod = platform(cfg["platform"], root)
+    inp = mod.simulate(cfg, traffic, seed)
+    inp.module = mod
+    return inp
 
 
 def pack_records(headers: List[np.ndarray], seqs: List[np.ndarray],
@@ -231,53 +246,17 @@ def write_gzip(path: str, data: np.ndarray, level: int, threads: int = 8,
             f.write(blob)
 
 
-def tenx_headers(inp: Inputs) -> np.ndarray:
-    """``@name\\tBX:Z:<barcode>-1``: the headers of step 0's output."""
-    bc = inp.barcodes[inp.pair_barcode]
-    return np.char.add(np.char.add(np.char.add(b"@", inp.names),
-                                   b"\tBX:Z:"), np.char.add(bc, b"-1"))
-
-
 def write(inp: Inputs, cfg: dict, traffic: dict, out_dir: str,
           prefix: str) -> Dict[str, str]:
     """Write ``inp`` as the files the traffic's entry reads."""
     os.makedirs(out_dir, exist_ok=True)
-    level = int(cfg["gzip_level"])
-    if inp.platform == "10x":
-        h = tenx_headers(inp)
-        path = os.path.join(out_dir, f"{prefix}.interleaved.fq.gz")
-        write_gzip(path, pack_records([h, h], [inp.seq1, inp.seq2],
-                                      [inp.qual1, inp.qual2]), level)
-        files = {"interleaved": path}
-    else:
-        stem = np.char.add(np.char.add(np.char.add(b"@", inp.names), b"#"),
-                           inp.raw_tags)
-        files = {}
-        for mate, s, q in ((1, inp.seq1, inp.qual1), (2, inp.seq2, inp.qual2)):
-            path = os.path.join(out_dir, f"{prefix}.R{mate}.fq.gz")
-            h = np.char.add(stem, f"/{mate}".encode())
-            write_gzip(path, pack_records([h], [s], [q]), level)
-            files[f"r{mate}"] = path
-        wl = os.path.join(out_dir, f"{prefix}.whitelist.txt")
-        with open(wl, "wb") as f:
-            f.write(b"".join(w + b"\t%d\n" % (i + 1)
-                             for i, w in enumerate(inp.whitelist)))
-        files["whitelist"] = wl
-    inp.files = files
-    return files
+    inp.files = inp.module.write(inp, cfg, traffic, out_dir, prefix)
+    return inp.files
 
 
 def subset(inp: Inputs, keep_barcodes: np.ndarray) -> Inputs:
     """The pairs of the barcodes ``keep_barcodes`` (a bool mask over
-    barcode ids), in the same order; on stLFR the unbarcoded pairs of
-    those partitions' reads are kept in proportion (every tenth pair of
-    the file that is unbarcoded rides along)."""
-    sel = np.where(inp.pair_barcode >= 0,
-                   keep_barcodes[np.maximum(inp.pair_barcode, 0)],
-                   np.arange(inp.n_pairs) % 10 == 0)
-    return Inputs({}, int(sel.sum()), inp.read_len, inp.seq1[sel],
-                  inp.seq2[sel], inp.qual1[sel], inp.qual2[sel],
-                  inp.names[sel], inp.pair_barcode[sel], inp.barcodes,
-                  inp.pair_strain[sel], inp.platform,
-                  raw_tags=None if inp.raw_tags is None else inp.raw_tags[sel],
-                  whitelist=inp.whitelist)
+    barcode ids), as the platform's module chooses them."""
+    out = inp.module.subset(inp, keep_barcodes)
+    out.module = inp.module
+    return out

@@ -10,9 +10,53 @@ file of its own, found by the name ``BENCHMARK.json`` gives it:
   each number the comparison reads;
 - ``traffic/<traffic>.json``: the entry a pass runs (``pipeline`` or
   ``driver``), its steps, and the barcodes and pairs per barcode;
+- ``platforms/<platform>.py``, for the configuration's ``platform``: the
+  input kind, loaded by its path (``gen.platform``). It imports nothing
+  of the program and provides
+
+  - ``simulate(cfg, traffic, seed) -> gen.Inputs``: the pass's pairs from
+    the seed, drawn with ``gen.pairs`` (barcodes x pairs per barcode of
+    the configuration's sample) and the platform's own draws after it;
+    names, barcodes and files' order are the platform's. Arrays that fit
+    no field of ``Inputs`` (long reads, an index read) go in
+    ``Inputs.extra``;
+  - ``write(inp, cfg, traffic, out_dir, prefix) -> dict``: writes the
+    files a pass reads under ``out_dir``, each named from ``prefix``,
+    and returns them by role (``interleaved``, ``r1``, ``r2``, ...);
+  - ``subset(inp, keep_barcodes) -> gen.Inputs``: the warm-up slice, the
+    pairs of the barcodes marked in the bool mask (``gen.take`` keeps
+    what is not per pair), with whatever else the platform's files need;
+  - ``stream(inp) -> compare.Stream``: the pairs in the order of the
+    pipeline's input, with the headers step 1 reads and each pair's
+    barcode id (-1 for none): the reference computes steps 1-3 and the
+    per-bin reads from it;
+  - ``step0_numbers(out_dir, ref) -> dict``: the platform's numbers of
+    step 0 for one pass (``{}`` where the pass runs no step 0), each
+    with a limit in the configuration's ``limits``;
+  - for a ``driver`` traffic only, ``driver_argv(cfg, files) -> list``:
+    the platform's own flags of ``driver.main``, with the paths from
+    ``files`` (stLFR: ``-s stlfr -1 R1 -2 R2 -w whitelist``; a hybrid
+    run ``-s short -1 R1 -2 R2 -l long_reads``, Tell-Seq ``-s tellseq
+    ... -I index``). The harness appends ``-o -c -t -st 0
+    --skip-external --device`` and then runs the pipeline on the
+    barcode-sorted FASTQ step 0 leaves at ``compare.STEP0_SORTED``, so
+    ``stream`` gives that file's pairs in its order and with its
+    headers, worked out by the platform without the program (the
+    reference's sort is ``reference.sort_order``; the stLFR rewrite is
+    ``reference.stlfr_sorted``). ``compare.step0_records_off`` compares
+    that file record by record; a ``step0_numbers`` that returns it
+    under a name of its own needs a limit of that name. The seconds
+    ``driver.main`` reports for step 0's sub-stages (``step0_s``) are
+    read by ``metrics/step0.<stage>_s.py``; a sub-stage that no metric
+    reads yet (hybrid: ``barcode_map``, ``short2long``, ``add_barcode``,
+    ``assign``) gets a reader file of its own;
 - ``metrics/<metric>.py``: a reader ``read(run)`` that returns the
   metric's value from a :class:`Run`, or None where it finds nothing to
-  read, with its ``UNIT`` and the end-to-end metric it ``MOVES``.
+  read, with its ``UNIT`` and the end-to-end metric it ``MOVES``. A
+  metric moves one end-to-end metric, so where cells report different
+  ones a quantity has a reader for each: ``<metric>.raw.py`` reads what
+  ``<metric>.py`` reads (``read = sibling(__file__, "<metric>")``) in the
+  cells that run step 0 from raw reads and report ``memory_peak_gb``.
 
 The program is reached through its public entries only:
 ``pipeline.cli`` (the parser that turns the configuration into a
@@ -50,6 +94,7 @@ class Cell:
     traffic: dict
     end_to_end: List[dict]
     per_layer: List[dict]
+    root: str = gen.ROOT  # the checkout that holds its files
 
 
 def _applies(metric: dict, cell: str) -> bool:
@@ -73,20 +118,34 @@ def load_cell(root: str, name: str) -> Cell:
         traffic = json.load(f)
     return Cell(name, int(w["chips"]), config, traffic,
                 [m for m in man["end_to_end"] if _applies(m, name)],
-                [m for m in man["per_layer"] if _applies(m, name)])
+                [m for m in man["per_layer"] if _applies(m, name)], root)
+
+
+def _metric_module(path: str):
+    name = os.path.basename(path)[:-len(".py")]
+    spec = importlib.util.spec_from_file_location(
+        "benchmark_metric_" + name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(root: str, metric: dict) -> Callable:
     """``metrics/<name>.py``'s ``read``, checked against the manifest."""
     path = os.path.join(root, "benchmark", "metrics", metric["name"] + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + metric["name"].replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = _metric_module(path)
     if mod.UNIT != metric["unit"] or mod.MOVES != metric.get(
             "moves", metric["name"]):
         raise ValueError(f"{path}: UNIT/MOVES disagree with BENCHMARK.json")
     return mod.read
+
+
+def sibling(path: str, name: str) -> Callable:
+    """The ``read`` of ``metrics/<name>.py`` beside the reader at ``path``:
+    for a metric that reads what ``name`` reads, in cells that report
+    another end-to-end metric for it to move."""
+    return _metric_module(os.path.join(os.path.dirname(path),
+                                       name + ".py")).read
 
 
 # ---- one pass ---------------------------------------------------------------
@@ -230,11 +289,10 @@ def run_pass(cell: Cell, inp: gen.Inputs, out_dir: str, device: str,
         t = time.perf_counter_ns()
         try:
             step0 = driver.main(
-                ["-s", cell.config["platform"], "-1", inp.files["r1"],
-                 "-2", inp.files["r2"], "-w", inp.files["whitelist"],
-                 "-o", out_dir, "-c", str(b["clusters"]),
-                 "-t", str(b["threads"]), "-st", "0", "--skip-external",
-                 "--device", device])["step0_s"]
+                inp.module.driver_argv(cell.config, inp.files)
+                + ["-o", out_dir, "-c", str(b["clusters"]),
+                   "-t", str(b["threads"]), "-st", "0", "--skip-external",
+                   "--device", device])["step0_s"]
         finally:
             spans.append(("step0", t, time.perf_counter_ns()))
             for h in root.handlers[:]:
@@ -242,8 +300,7 @@ def run_pass(cell: Cell, inp: gen.Inputs, out_dir: str, device: str,
                     root.removeHandler(h)
                     h.close()
             root.setLevel(level)
-        inputs = ["-i", os.path.join(out_dir, "0_preprocess_reads",
-                                     "interleaved_link_reads.sorted.fastq")]
+        inputs = ["-i", os.path.join(out_dir, compare.STEP0_SORTED)]
     else:
         raise ValueError(f"unknown entry {entry!r}")
     pipe = Pipeline(pipeline_config(cell.config, cell.traffic, inputs,
@@ -365,6 +422,8 @@ class Run:
     trace: Optional[Trace]
     device_name: str
     peaks: dict
+    # the card's peak allocated bytes over the window (0 off a card)
+    memory_peak_bytes: int = 0
 
     @property
     def reads(self) -> int:
@@ -424,14 +483,15 @@ def run_window(cell: Cell, inp: gen.Inputs, work: str, seconds: float,
     for p in passes:
         p.count_outputs()
     name = torch.cuda.get_device_name(0) if cuda else "cpu"
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
     return Run(cell, t_win - t_start, t_end - t_win, passes, trace, name,
-               peaks(name))
+               peaks(name), peak)
 
 
 def make_inputs(cell: Cell, seed: int, work: str):
     """The cell's inputs and its warm-up slice (``WARMUP_SHARE`` of the
     barcodes, the same geometry), written under ``work``."""
-    inp = gen.simulate(cell.config, cell.traffic, seed)
+    inp = gen.simulate(cell.config, cell.traffic, seed, cell.root)
     gen.write(inp, cell.config, cell.traffic, work, "input")
     n_bc = len(inp.barcodes)
     keep = np.zeros(n_bc, bool)

@@ -1,0 +1,8 @@
+"""``device.idle_pct`` in the cells that run step 0 from raw reads,
+where it moves ``memory_peak_gb``."""
+
+from benchmark import harness
+
+UNIT = "%"
+MOVES = "memory_peak_gb"
+read = harness.sibling(__file__, "device.idle_pct")

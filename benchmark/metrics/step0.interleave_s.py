@@ -3,7 +3,7 @@
 returns, which the span fills."""
 
 UNIT = "s"
-MOVES = "reads_per_s"
+MOVES = "memory_peak_gb"
 
 
 def read(run):

@@ -3,7 +3,7 @@
 ``pipeline.driver.main`` returns as ``step0_s``."""
 
 UNIT = "s"
-MOVES = "reads_per_s"
+MOVES = "memory_peak_gb"
 
 
 def read(run):

@@ -101,7 +101,7 @@ def main(argv=None, *, root: str = ROOT, device: str = "cuda",
             torch.cuda.reset_peak_memory_stats()
         run = harness.run_window(cell, inp, work, args.seconds, device,
                                  lloyd, bool(args.trace), t_start)
-        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        peak = run.memory_peak_bytes
         bad = forbidden_modules()
         if bad:
             print("the run loaded " + ", ".join(bad), file=sys.stderr)

@@ -37,7 +37,12 @@ def test_the_manifest_names_the_counter():
     m = _metric()
     assert (m["unit"], m["better"], m["source"], m["layer"], m["moves"]) == (
         "%", "higher", "program_counter", "step 2", "reads_per_s")
-    assert m["workloads"] == ["10x-atcc.bin", "stlfr-atcc.raw"]
+    assert m["workloads"] == ["10x-atcc.bin", "10x-atcc.deep"]
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        raw = {m["name"]: m for m in json.load(f)["per_layer"]}[
+            "step2.graph_pct.raw"]
+    assert raw == dict(m, name="step2.graph_pct.raw", moves="memory_peak_gb",
+                       workloads=["stlfr-atcc.raw"])
 
 
 def test_reads_the_replayed_share_per_pass():

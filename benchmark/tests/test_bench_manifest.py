@@ -56,6 +56,20 @@ def test_every_cell_and_metric_is_found_by_name():
             ["reduced"])
 
 
+def test_the_deep_cell_is_bin_at_twice_the_pairs():
+    deep = harness.load_cell(ROOT, "10x-atcc.deep")
+    bin_ = harness.load_cell(ROOT, "10x-atcc.bin")
+    assert (deep.chips, deep.config) == (1, bin_.config)
+    assert deep.traffic == dict(bin_.traffic, pairs_per_barcode=80)
+    assert deep.end_to_end == bin_.end_to_end
+    for m in _manifest()["per_layer"]:
+        if "10x-atcc.bin" in m.get("workloads", ["10x-atcc.bin"]):
+            assert "10x-atcc.deep" in m.get("workloads", ["10x-atcc.deep"]), \
+                m["name"]
+    assert [m["name"] for m in deep.per_layer] == [
+        m["name"] for m in bin_.per_layer]
+
+
 def _imports(path):
     tree = ast.parse(open(path).read())
     for node in ast.walk(tree):
@@ -70,10 +84,11 @@ def test_no_jax_and_a_program_free_reference():
                           recursive=True):
         tops = {m.split(".")[0] for m in _imports(path)}
         assert not tops & set(run.FORBIDDEN), path
-    for name in ("reference", "compare", "gen", "flops"):
-        tops = {m.split(".")[0] for m in _imports(
-            os.path.join(ROOT, "benchmark", name + ".py"))}
-        assert "pangaea_tpu_torch" not in tops, name
+    for path in [os.path.join(ROOT, "benchmark", name + ".py") for name in
+                 ("reference", "compare", "gen", "flops")] + glob.glob(
+                     os.path.join(ROOT, "benchmark", "platforms", "*.py")):
+        tops = {m.split(".")[0] for m in _imports(path)}
+        assert "pangaea_tpu_torch" not in tops, path
 
 
 def test_the_module_check_compares_whole_top_level_names():
@@ -86,3 +101,39 @@ def test_the_module_check_compares_whole_top_level_names():
     finally:
         for k in set(sys.modules) - set(before):
             del sys.modules[k]
+
+
+def test_every_per_layer_metric_moves_what_its_cells_report():
+    man = _manifest()
+    for w in man["workloads"]:
+        cell = harness.load_cell(ROOT, w["name"])
+        reported = {m["name"] for m in cell.end_to_end}
+        assert "setup_s" in reported and len(reported) >= 2, w["name"]
+        for m in cell.per_layer:
+            assert m["moves"] in reported, (w["name"], m["name"])
+    raw = harness.load_cell(ROOT, "stlfr-atcc.raw")
+    assert {m["name"] for m in raw.end_to_end} == {"memory_peak_gb",
+                                                   "setup_s"}
+    for name in ("10x-atcc.bin", "10x-atcc.deep"):
+        assert {m["name"] for m in harness.load_cell(ROOT, name).end_to_end
+                } == {"reads_per_s", "setup_s"}
+
+
+def test_each_raw_twin_is_its_base_moving_the_peak_memory():
+    """``<metric>.raw`` is ``<metric>`` in the cells that report
+    ``memory_peak_gb``: the same entry but for its name, what it moves
+    and its cells, and a reader that reads what the base's reads."""
+    ms = {m["name"]: m for m in _manifest()["per_layer"]}
+    twins = [n for n in ms if n.endswith(".raw")]
+    assert len(twins) == 14
+    for name in twins:
+        base = name[:-len(".raw")]
+        want = {"name": name, "moves": "memory_peak_gb",
+                "workloads": ["stlfr-atcc.raw"]}
+        if base == "reads_per_s":
+            e2e = {m["name"]: m for m in _manifest()["end_to_end"]}[base]
+            assert (ms[name]["unit"], ms[name]["better"]) == (
+                e2e["unit"], e2e["better"])
+            continue
+        assert ms[name] == dict(ms[base], **want), name
+        assert "stlfr-atcc.raw" not in ms[base]["workloads"], base

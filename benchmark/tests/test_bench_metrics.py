@@ -98,3 +98,30 @@ def test_trace_summary_busy_gaps_and_labels():
     assert t.kernel_s["a"] == pytest.approx(1_500 / 1e9)
     assert t.window_s == pytest.approx(10_000 / 1e9)
     assert t.idle_gaps == [["step2", 5_000 / 1e9]]
+
+
+def test_peak_memory_in_gb_and_the_raw_wall_rate():
+    cell = harness.load_cell(ROOT, "stlfr-atcc.raw")
+    run = harness.Run(cell, 3.0, 40.0, [_pass(12.0), _pass(13.0)], None,
+                      "cpu", {}, 3_410_182_656)
+    assert _read("memory_peak_gb", run) == 3.410182656
+    assert _read("reads_per_s.raw", run) == pytest.approx(2000 / 40.0)
+    assert _read("memory_peak_gb", harness.Run(
+        cell, 3.0, 40.0, [_pass(12.0)], None, "cpu", {})) is None
+
+
+def test_raw_twins_read_what_their_bases_read():
+    p = _pass(1, stages={"step1_features": 2.0, "step2_train": 4.0,
+                         "step3_cluster": 3.0},
+              feature_stats={"stream_s": 1.5, "save_s": 0.5},
+              train={"phase_times": {"dispatch": 2.0, "sync": 0.1,
+                                     "units": 10, "graph_units": 9}},
+              cluster={"rph_s": 1.0, "extract_s": 1.5})
+    t = harness.Trace(10.0, 2.0, {"void scan_kernel<Max, false>": 1e-3},
+                      [], [1000])
+    run = _run([p], 20.0, trace=t, peaks={"hbm_bytes_per_s": 3.35e12})
+    twins = [m["name"] for m in _manifest()["per_layer"]
+             if m["name"].endswith(".raw") and m["name"] != "reads_per_s.raw"]
+    for name in twins:
+        assert _read(name, run) == _read(name[:-len(".raw")], run), name
+    assert sum(_read(n, run) is not None for n in twins) >= 10

@@ -15,12 +15,14 @@ ROOT = run.ROOT
 
 def make_root(tmp, barcodes=160, epochs=20, clusters=4):
     """A checkout root holding BENCHMARK.json and cut-down data files
-    (the metric readers are copied as they are)."""
+    (the platform modules and metric readers are copied as they are)."""
     root = os.path.join(str(tmp), "root")
     for sub in ("configs", "traffic"):
         os.makedirs(os.path.join(root, "benchmark", sub))
-    shutil.copytree(os.path.join(ROOT, "benchmark", "metrics"),
-                    os.path.join(root, "benchmark", "metrics"))
+    for sub in ("platforms", "metrics"):
+        shutil.copytree(os.path.join(ROOT, "benchmark", sub),
+                        os.path.join(root, "benchmark", sub),
+                        ignore=shutil.ignore_patterns("__pycache__"))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         man = json.load(f)
     for c in man["configs"]:
